@@ -7,8 +7,11 @@ Phases, each printed on its own line with its seconds:
   0. the card's name and power limit (nvidia-smi);
   1. build of the CUDA kernels with nvcc (sm_90a) into v2e_tpu_torch/_build;
   2. K1 (refractory scan) against its plain PyTorch version at the main
-     path's shape (160 frames of 260x346, leak and shot noise on, R=0.5 ms):
-     counts, i0 and K equal, base and spike-time memory within 1e-6;
+     path's shape and frame interval (160 frames of 260x346 at 1/300 s,
+     leak and shot noise on, R=0.5 ms), with a high-contrast moving bar so
+     that the filter is active (R > dt/K) in every frame after the first:
+     counts, i0 and K equal, base and spike-time memory within 1e-6, and
+     the filter seen to act (i0 > 0 somewhere, spike times updated);
   3. K3 (bilinear warp) against its plain version at 160 planes of 256x320
      with flows up to +-32 px: max abs difference <= 1e-5; F.grid_sample is
      timed beside it as a yardstick;
@@ -91,9 +94,12 @@ def phase_k1(torch, dev):
     yy = torch.arange(H, device=dev, dtype=f32)[:, None]
     xx = torch.arange(W, device=dev, dtype=f32)[None, :]
     tt = torch.arange(F, device=dev, dtype=f32)[:, None, None]
-    # drifting log-intensity texture plus per-frame noise
+    # drifting log-intensity texture, a bar 2.5 log units bright moving 3 px
+    # per frame (its edges give K of about 12-33, so R > dt/K: the filter
+    # acts), plus per-frame noise
+    bar = (torch.remainder(xx + 0.5 * yy - 3.0 * tt, 96.0) < 10.0).to(f32)
     lp = (4.6 + 0.6 * torch.sin((xx + 0.2 * tt) / 17.0) * torch.cos(yy / 13.0)
-          + 0.02 * torch.randn((F, H, W), generator=g, device=dev))
+          + 2.5 * bar + 0.02 * torch.randn((F, H, W), generator=g, device=dev))
     pos = torch.clamp(0.2 + 0.03 * torch.randn((H, W), generator=g, device=dev), min=0.01)
     neg = torch.clamp(0.2 + 0.03 * torch.randn((H, W), generator=g, device=dev), min=0.01)
     base = lp[0] + 0.05 * torch.randn((H, W), generator=g, device=dev)
@@ -116,6 +122,13 @@ def phase_k1(torch, dev):
     err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
     if err > 1e-6:
         raise AssertionError(f"K1 base/mem differ by {err} > 1e-6")
+    n_active = int((got[4].to(f32) * R > dts).sum())
+    i0_max = int(got[3].max())
+    mem_moved = int((got[1] != mem).sum())
+    if n_active < F - 1 or i0_max <= 0 or mem_moved == 0:
+        raise AssertionError(
+            f"K1 test data leaves the refractory filter idle: active in {n_active}/{F} "
+            f"frames, i0 max {i0_max}, {mem_moved} spike times updated")
     ms = time_ms(torch, lambda: refractory_scan(*args), reps=10)
     plain_ms = time_ms(torch, lambda: refractory_scan_plain(*args), reps=2)
     refractory_scan.launches = before  # comparison launches do not count
@@ -124,8 +137,11 @@ def phase_k1(torch, dev):
     b_ms, b_by = bound(nbytes, F * npix * 40)
     events = int(got[2].abs().sum())
     log(f"[k1] refractory scan F={F} {H}x{W}: counts/i0/K equal, base/mem max abs "
-        f"err {err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); {events} events in the test chunk")
+        f"err {err:.3g}; filter active in {n_active}/{F} frames (K {int(got[4].min())}"
+        f"-{int(got[4].max())}), i0 max {i0_max} at {int((got[3] > 0).sum())} "
+        f"pixel-frames, {mem_moved}/{H * W} spike times updated; kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {events} events in "
+        f"the test chunk")
     return {
         "name": "refractory_scan", "route": "cuda",
         "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
