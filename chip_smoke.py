@@ -22,7 +22,27 @@ Phases, each printed on its own line with its seconds:
      same path at a small size on the card and on the CPU, noise off,
      which must agree;
   5. the measured chunks' events written to AEDAT-2 and text files in a
-     temporary directory.
+     temporary directory;
+  6. K2 (refractory-free scan) against its plain version at 160 frames of
+     260x346 with the noisy preset's leak and shot noise: counts equal, base
+     within 1e-6;
+  7. the CLI (v2e_tpu_torch.cli) in-process on the card, on a 346x260 PNG
+     folder the script writes (33 frames at 30 fps, a bright bar moving
+     40 px per frame), twice:
+       A. the CLI defaults (video outputs on, so every chunk is staged) with
+          auto-upsampling floored at U=67 (bucket 96 > 32): K4 and K1;
+       B. --dvs_params noisy, fixed U=12, --skip_video_output (fused chunks
+          after the first): K2 and K3;
+     each with the kernels' launch counters set to 0 before and read after,
+     and its outputs checked (AEDAT-2 payload of 8 B per event, event times
+     inside the input's span, non-empty videos in run A); then run A once
+     more under torch.profiler for its device time (not counted); and both
+     runs at 64x96 with the golden weights on the card and on the CPU,
+     which must agree;
+  8. K4 (tiled warp) against its plain version at the shape run A launched
+     it with, flows with tile means of 33-120 px and a case where the
+     residual clamp acts: max abs difference <= 1e-5; F.grid_sample is timed
+     beside it.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
@@ -200,6 +220,267 @@ def phase_k3(torch, dev):
     }
 
 
+def phase_k2(torch, dev):
+    """K2 at the main path's shape, with the noisy preset's leak and shot
+    noise drawn as emulate_chunk_apply draws them."""
+    from v2e_tpu_torch.emulator.config import EmulatorConfig
+    from v2e_tpu_torch.ops.core import generate_shot_noise, rescale_intensity_frame
+    from v2e_tpu_torch.ops.kernels.emulator_scan import scan, scan_plain
+
+    cfg = EmulatorConfig.noisy()
+    F = U * B
+    g = torch.Generator(device=dev).manual_seed(4)
+    f32 = torch.float32
+    yy = torch.arange(H, device=dev, dtype=f32)[:, None]
+    xx = torch.arange(W, device=dev, dtype=f32)[None, :]
+    tt = torch.arange(F, device=dev, dtype=f32)[:, None, None]
+    bar = (torch.remainder(xx + 0.5 * yy - 3.0 * tt, 96.0) < 10.0).to(f32)
+    lp = (4.6 + 0.6 * torch.sin((xx + 0.2 * tt) / 17.0) * torch.cos(yy / 13.0)
+          + 2.5 * bar + 0.02 * torch.randn((F, H, W), generator=g, device=dev))
+    pos = torch.clamp(cfg.pos_thres + cfg.sigma_thres * torch.randn((H, W), generator=g, device=dev), min=0.01)
+    neg = torch.clamp(cfg.neg_thres + cfg.sigma_thres * torch.randn((H, W), generator=g, device=dev), min=0.01)
+    rate = torch.exp(2.302585 * cfg.noise_rate_cov_decades * torch.randn((H, W), generator=g, device=dev))
+    dt = 1.0 / (SRC_FPS * U)
+    leak = (dt * (cfg.leak_rate_hz * rate)
+            * (1.0 - cfg.leak_jitter_fraction * torch.randn((F, H, W), generator=g, device=dev)) * pos)
+    inten01 = rescale_intensity_frame(torch.exp(lp).clamp(max=255.0))
+    on, off = generate_shot_noise(
+        torch.rand((F, H, W), generator=g, device=dev), cfg.shot_noise_rate_hz, dt,
+        cfg.shot_noise_inten_factor, inten01, 0.2 / pos, 0.2 / neg)
+    shot = (on | off).to(torch.uint8)
+    base = lp[0] + 0.05 * torch.randn((H, W), generator=g, device=dev)
+    args = (lp, leak.contiguous(), shot, pos, neg, base)
+
+    got = scan(*args)
+    want = scan_plain(*args)
+    torch.cuda.synchronize()
+    n_bad = int((got[1] != want[1]).sum())
+    if n_bad:
+        raise AssertionError(f"K2 counts: {n_bad} entries differ from the plain version")
+    err = float((got[0] - want[0]).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"K2 base differs by {err} > 1e-6")
+    ms = time_ms(torch, lambda: scan(*args), reps=20)
+    plain_ms = time_ms(torch, lambda: scan_plain(*args), reps=2)
+    npix = H * W
+    nbytes = F * npix * (4 + 4 + 1 + 2) + npix * 4 * 4
+    b_ms, b_by = bound(nbytes, F * npix * 15)
+    log(f"[k2] scan F={F} {H}x{W} (noisy preset leak and shot, {int(shot.sum())} shot "
+        f"resets): counts equal, base max abs err {err:.3g}; kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {int(got[1].abs().sum())} events")
+    return {
+        "name": "scan", "route": "cuda",
+        "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
+        "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:72",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+
+def phase_k4(torch, dev, shape, max_base):
+    """K4 at the shape the CLI's run A launched it with."""
+    import torch.nn.functional as Fn
+
+    from v2e_tpu_torch.ops.kernels.warp_tiled import tile_bases, warp_tiled, warp_tiled_plain
+
+    N, h, w = shape
+    g = torch.Generator(device=dev).manual_seed(5)
+    img = torch.rand((N, h, w), generator=g, device=dev) - 0.428
+    # per plane a motion of 33-120 px in a random direction, plus smooth
+    # variation of a few px: inside the residual envelope
+    mag = 33.0 + 87.0 * torch.rand((N, 1, 1, 1), generator=g, device=dev)
+    ang = 6.2831853 * torch.rand((N, 1, 1, 1), generator=g, device=dev)
+    mean = torch.cat([mag * torch.cos(ang), mag * torch.sin(ang)], dim=1)
+    coarse = torch.rand((N, 2, 5, 6), generator=g, device=dev) * 6.0 - 3.0
+    flow = (mean + Fn.interpolate(coarse, size=(h, w), mode="bilinear",
+                                  align_corners=True)).contiguous()
+    # a second set where the flow varies by far more than the residual window
+    flow_clamped = (flow + torch.rand(flow.shape, generator=g, device=dev) * 240.0 - 120.0).contiguous()
+
+    errs = []
+    for fl in (flow, flow_clamped):
+        got = warp_tiled(img, fl[:, 0], fl[:, 1], max_base)
+        want = warp_tiled_plain(img, fl[:, 0], fl[:, 1], max_base)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+    err = max(errs)
+    if not err <= 1e-5:
+        raise AssertionError(f"K4 differs from the plain version by {errs} > 1e-5")
+    bu, bv = tile_bases(flow[:, 0], flow[:, 1], max_base)
+    # the clamped case must leave the envelope somewhere: compare with the
+    # unclamped gather
+    from v2e_tpu_torch.ops.kernels.warp import warp_plain
+
+    off_envelope = float((warp_tiled(img, flow_clamped[:, 0], flow_clamped[:, 1], max_base)
+                          - warp_plain(img, flow_clamped[:, 0], flow_clamped[:, 1])).abs().max())
+    if off_envelope < 0.05:
+        raise AssertionError("K4 clamp case never left the residual envelope")
+
+    u, v = flow[:, 0], flow[:, 1]
+    gx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    gy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    grid = torch.stack([2.0 * ((gx + u) / w - 0.5), 2.0 * ((gy + v) / h - 0.5)], dim=-1)
+    img4 = img[:, None]
+
+    def lib():
+        return Fn.grid_sample(img4, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=False)
+
+    lib_err = float((lib()[:, 0] - warp_tiled_plain(img, u, v, max_base)).abs().max())
+    ms = time_ms(torch, lambda: warp_tiled(img, u, v, max_base), reps=20)
+    plain_ms = time_ms(torch, lambda: warp_tiled_plain(img, u, v, max_base), reps=3)
+    library_ms = time_ms(torch, lib, reps=20)
+    b_ms, b_by = bound(N * h * w * 16, N * h * w * 40)
+    log(f"[k4] tiled warp N={N} {h}x{w} max_base {max_base}: max abs err {errs[0]:.3g} "
+        f"(motion {float(mag.min()):.1f}-{float(mag.max()):.1f} px, tile bases "
+        f"x {int(bu.min())}..{int(bu.max())}, y {int(bv.min())}..{int(bv.max())}), "
+        f"{errs[1]:.3g} with the clamp active ({off_envelope:.3g} off the unclamped warp); "
+        f"grid_sample {lib_err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"grid_sample {library_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "warp_tiled", "route": "cuda",
+        "source": "v2e_tpu_torch/csrc/warp_tiled.cu",
+        "replaces": "v2e_tpu/ops/pallas/warp_v2.py:116",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+    }
+
+
+CLI_FRAMES = 33
+
+
+def write_cli_input(np, folder):
+    """CLI_FRAMES PNGs of 346x260: a textured background and a bright bar
+    moving 40 px per frame."""
+    import cv2
+
+    os.makedirs(folder)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for i in range(CLI_FRAMES):
+        f = 70 + 30 * np.sin(xx / 23.0) * np.cos(yy / 17.0)
+        x0 = (20 + 40 * i) % W
+        f[:, x0: x0 + 24] += 120
+        cv2.imwrite(os.path.join(folder, f"{i:04d}.png"), np.clip(f, 0, 255).astype(np.uint8))
+
+
+def read_aedat2(path):
+    with open(path, "rb") as f:
+        data = f.read()
+    header = 0
+    while data[header: header + 1] == b"#":
+        header = data.index(b"\r\n", header) + 2
+    return len(data) - header
+
+
+def phase_cli(torch, np, tmp, counters):
+    """The port's CLI, runs A and B, then run A once more under
+    torch.profiler (its launches not counted).  Returns {run: launches by
+    kernel}."""
+    from v2e_tpu_torch import cli
+
+    src = os.path.join(tmp, "frames")
+    write_cli_input(np, src)
+    span = (CLI_FRAMES - 1) / SRC_FPS
+    runs = {
+        "A": ["--allow_random_slomo", "--auto_timestamp_resolution", "True",
+              "--timestamp_resolution", "0.0005", "--dvs_aedat2", "a.aedat",
+              "--dvs_text", "a.txt"],
+        "B": ["--allow_random_slomo", "--dvs_params", "noisy",
+              "--auto_timestamp_resolution", "False", "--timestamp_resolution", "0.003",
+              "--skip_video_output", "--dvs_aedat2", "b.aedat"],
+    }
+    want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp")}
+    walls = {}
+    absent = {"A": ("bilinear_warp", "scan"), "B": ("warp_tiled", "refractory_scan")}
+    launches = {}
+    for name, flags in runs.items():
+        out = os.path.join(tmp, "out" + name)
+        argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = cli.run(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        walls[name] = wall
+        aedat = os.path.join(out, name.lower() + ".aedat")
+        payload = read_aedat2(aedat)
+        if stats.num_events <= 0 or payload != 8 * stats.num_events:
+            raise AssertionError(f"run {name}: AEDAT-2 payload {payload} B for "
+                                 f"{stats.num_events} events")
+        if not (stats.first_ts >= 0.0 and stats.last_ts <= span + 1e-9):
+            raise AssertionError(f"run {name}: frame times {stats.first_ts}-{stats.last_ts} "
+                                 f"outside the input's 0-{span} s")
+        if name == "A":
+            ev = np.loadtxt(os.path.join(out, "a.txt"), comments="#", usecols=0)
+            if not (ev.min() >= -1e-6 and ev.max() <= span + 1e-6):
+                raise AssertionError(f"run A: event times {ev.min()}-{ev.max()} outside 0-{span} s")
+            for vid in ("dvs-video.avi", "video_orig.avi", "video_slomo.avi"):
+                if os.path.getsize(os.path.join(out, vid)) <= 0:
+                    raise AssertionError(f"run A: {vid} is empty")
+        if name == "A" and (min(stats.upsampling) <= 32 or stats.fused_chunks):
+            raise AssertionError(f"run A: U {stats.upsampling}, {stats.fused_chunks} fused "
+                                 "chunks; wants U > 32 and every chunk staged")
+        if name == "B" and (set(stats.upsampling) != {12} or not stats.fused_chunks):
+            raise AssertionError(f"run B: U {stats.upsampling}, {stats.fused_chunks} fused "
+                                 "chunks; wants U = 12 and fused chunks")
+        bad = [k for k in want[name] if not launches[name][k]]
+        bad += [k for k in absent[name] if launches[name][k]]
+        if bad:
+            raise AssertionError(f"run {name}: kernel launches {launches[name]}")
+        path = f"{stats.staged_chunks} staged + {stats.fused_chunks} fused chunks"
+        log(f"[cli] run {name}: U {stats.upsampling}, {path}; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches[name].items())
+            + f"; {stats.n_frames} frames, {stats.num_events} events, AEDAT-2 "
+            f"{payload} B; wall {wall:.2f} s, realtime factor "
+            f"{stats.realtime_factor:.4f} (cli {stats.wall_s:.2f} s)")
+    argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", os.path.join(tmp, "outP")]
+    profile_device(torch, "cli-profile", lambda: cli.run(argv + runs["A"], device="cuda"),
+                   walls["A"] * 1e3, "run A again", top=8)
+    return launches
+
+
+def phase_cli_small(torch, np, tmp):
+    """Runs A and B at 64x96 with the golden SuperSloMo fixture and
+    deterministic emulator flags, on the card and on the CPU: the same U
+    and chunk paths, and event totals within 1 % (the CLI computes the
+    UNets in bf16, whose sums cuDNN and the CPU round differently, which
+    flips some interpolated pixels by one 8-bit level)."""
+    import cv2
+
+    from v2e_tpu_torch import cli
+
+    src = os.path.join(tmp, "small")
+    os.makedirs(src)
+    yy, xx = np.mgrid[0:64, 0:96].astype(np.float32)
+    for i in range(12):
+        f = 70 + 40 * np.sin(xx / 7.0) * np.cos(yy / 9.0)
+        f[:, (10 + 6 * i) % 96: (10 + 6 * i) % 96 + 8] += 100
+        cv2.imwrite(os.path.join(src, f"{i:04d}.png"), np.clip(f, 0, 255).astype(np.uint8))
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "fixtures", "slomo_golden.npz")
+    common = ["-i", src, "--input_frame_rate", str(SRC_FPS), "--slomo_model", golden,
+              "--batch_size", "4", "--dvs_text", "ev.txt", "--no_shuffle",
+              "--sigma_thres", "0", "--leak_rate_hz", "0", "--shot_noise_rate_hz", "0",
+              "--cutoff_hz", "0"]
+    runs = {"A": ["--auto_timestamp_resolution", "True", "--timestamp_resolution", "0.0005"],
+            "B": ["--refractory_period", "0", "--auto_timestamp_resolution", "False",
+                  "--timestamp_resolution", "0.003", "--skip_video_output"]}
+    for name, flags in runs.items():
+        res = {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"small{name}-{device}")
+            st = cli.run(common + flags + ["-o", out], device=device)
+            res[device] = (st.upsampling, st.staged_chunks, st.fused_chunks, st.num_events)
+        (ug, sg, fg, ng), (uc, sc, fc_, nc) = res["cuda"], res["cpu"]
+        if (ug, sg, fg) != (uc, sc, fc_) or abs(ng - nc) > 0.01 * nc or nc == 0:
+            raise AssertionError(f"small run {name}: card {res['cuda']} vs CPU {res['cpu']}")
+        log(f"[cli-small] run {name} at 64x96: U {ug}, {sg} staged + {fg} fused chunks on "
+            f"both; events card {ng} vs CPU {nc} ({abs(ng - nc) / nc:.3%})")
+
+
 def check_events(np, ev, w, h, t_lo, t_hi):
     """Finite [N,4] events on the sensor, with times inside the chunk (the
     device keeps chunk-relative float32 times: 1e-5 s of slack)."""
@@ -235,16 +516,16 @@ def run_chunks(np, fc, em, src, chunks, b, u, split=None):
     return out
 
 
-def phase_profile(torch, np, fc, em, src, c, chunk_ms):
-    """One more chunk under torch.profiler: device kernel time by name and
-    the device's busy share of the (profiled, so slower) wall time.
+def profile_device(torch, tag, fn, ref_ms, what, top=12):
+    """Run fn under torch.profiler and print the device kernel time by
+    name and its share of `ref_ms`, the same work's unprofiled wall time.
     Informational: prints "not measured" where the profiler sees no device."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run_chunks(np, fc, em, src, [c], B, U)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
@@ -254,15 +535,21 @@ def phase_profile(torch, np, fc, em, src, c, chunk_ms):
         if dev_us > 0 and str(e.device_type).endswith("CUDA"):
             rows.append((dev_us / 1e3, e.count, e.key))
     if not rows:
-        log("[profile] device time not measured (the profiler saw no device)")
+        log(f"[{tag}] device time not measured (the profiler saw no device)")
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[profile] one chunk: device kernel time {busy:.1f} ms in {len(rows)} kernels "
-        f"(wall {wall_ms:.1f} ms with the profiler on; {busy / chunk_ms:.1%} of the "
-        f"unprofiled {chunk_ms:.1f} ms chunk)")
-    for ms, n, name in rows[:12]:
-        log(f"[profile]   {ms:9.3f} ms x{n:<5d} {name[:100]}")
+    log(f"[{tag}] {what}: device kernel time {busy:.1f} ms in {len(rows)} kernels "
+        f"(wall {wall_ms:.1f} ms with the profiler on; {busy / ref_ms:.1%} of the "
+        f"unprofiled {ref_ms:.1f} ms)")
+    for ms, n, name in rows[:top]:
+        log(f"[{tag}]   {ms:9.3f} ms x{n:<5d} {name[:100]}")
+
+
+def phase_profile(torch, np, fc, em, src, c, chunk_ms):
+    """One more chunk of the fused path under torch.profiler."""
+    profile_device(torch, "profile", lambda: run_chunks(np, fc, em, src, [c], B, U),
+                   chunk_ms, "one chunk")
 
 
 def phase_small_reference(torch, np, devices=("cuda", "cpu")):
@@ -313,8 +600,9 @@ def main() -> int:
     from v2e_tpu_torch.io.text import DVSTextOutput
     from v2e_tpu_torch.models.slomo import SuperSloMo
     from v2e_tpu_torch.ops.kernels import build
-    from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan
+    from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
     from v2e_tpu_torch.ops.kernels.warp import bilinear_warp
+    from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled
     from v2e_tpu_torch.synthetic import make_source_frames
 
     dev = torch.device("cuda")
@@ -403,8 +691,29 @@ def main() -> int:
     log(f"[sinks] AEDAT-2 {sizes[0]} B, text {sizes[1]} B for {sum(n_ev)} events "
         f"({time.perf_counter() - t:.2f} s)")
 
+    t = time.perf_counter()
+    k2 = phase_k2(torch, dev)
+    log(f"[k2] {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    counters = {"refractory_scan": refractory_scan, "scan": scan,
+                "bilinear_warp": bilinear_warp, "warp_tiled": warp_tiled}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_cli(torch, np, tmp, counters)
+        k4_call = warp_tiled.last_call  # run A's last launch: (shape, max_base)
+        log(f"[cli] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_cli_small(torch, np, tmp)
+        log(f"[cli-small] {time.perf_counter() - t:.2f} s")
+    k2["launches"] = cli_launches["B"]["scan"]
+
+    t = time.perf_counter()
+    k4 = phase_k4(torch, dev, *k4_call)
+    k4["launches"] = cli_launches["A"]["warp_tiled"]
+    log(f"[k4] {time.perf_counter() - t:.2f} s")
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [k1, k3]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,110 @@
+"""The port's CLI (v2e_tpu_torch.cli) on the CPU: its video and AEDAT-2
+outputs, the flags it turns away with a non-zero exit (each names the
+ROADMAP item that will port its path), and its import boundary (no jax, no
+v2e_tpu).  test_torch_cli.py holds the CLI against the JAX package's.
+"""
+import logging
+import os
+import subprocess
+import sys
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from v2e_tpu_torch import cli
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "fixtures", "slomo_golden.npz")
+
+
+@pytest.fixture(scope="module")
+def frames_dir(tmp_path_factory):
+    """Four 346x260 frames of a bright bar moving 8 px per frame."""
+    d = tmp_path_factory.mktemp("frames")
+    for i in range(4):
+        f = np.full((260, 346), 80, np.uint8)
+        f[:, 20 + 8 * i: 40 + 8 * i] = 200
+        cv2.imwrite(str(d / f"{i:04d}.png"), f)
+    return str(d)
+
+
+def test_cli_writes_videos_and_aedat(frames_dir, tmp_path):
+    """The default video outputs (dvs-video.avi, video_orig.avi and
+    video_slomo.avi, which keep every window staged) and an AEDAT-2 file
+    of 8 bytes per event after its header."""
+    out = tmp_path / "out"
+    stats = cli.run(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(out),
+                     "--slomo_model", GOLDEN, "--batch_size", "2",
+                     "--auto_timestamp_resolution", "False", "--timestamp_resolution", "0.01",
+                     "--dvs_aedat2", "ev.aedat"], device="cpu")
+    assert (stats.staged_chunks, stats.fused_chunks) == (2, 0)
+    for name in ("dvs-video.avi", "video_orig.avi", "video_slomo.avi", "ev.aedat"):
+        assert os.path.getsize(out / name) > 0, name
+    with open(out / "ev.aedat", "rb") as f:
+        data = f.read()
+    header = 0
+    while data[header:header + 1] == b"#":  # the ASCII header's lines
+        header = data.index(b"\r\n", header) + 2
+    assert len(data) - header == 8 * stats.num_events and stats.num_events > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--unet_conv", "packedz"],
+    ["--dvs_h5", "ev.h5"],
+    ["--dvs_aedat4", "ev.aedat4"],
+    ["--ddd_output"],
+    ["--synthetic_input", "scripts.moving_dot"],
+    ["--scidvs"],
+    ["--cs_lambda_pixels", "2"],
+    ["--save_dvs_model_state"],
+    ["--checkpoint_state", "s.npz"],
+    ["--resume_state", "s.npz"],
+    ["--slomo_use_saved"],
+    ["--slomo_stats_plot"],
+    ["--devices", "2"],
+    ["--parallel_mode", "segment"],
+], ids=lambda f: f[0].lstrip("-"))
+def test_rejected_flags_exit_nonzero(frames_dir, tmp_path, caplog, flags):
+    rc = cli.main(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(tmp_path / "out")]
+                  + flags, device="cpu")
+    assert rc == 2
+    assert "ROADMAP" in caplog.text and flags[0] in caplog.text
+    assert not (tmp_path / "out").exists()
+
+
+def test_tpu_layout_unet_forms_run_dense(frames_dir, tmp_path, caplog):
+    caplog.set_level(logging.INFO)
+    rc = cli.main(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(tmp_path / "out"),
+                   "--unet_conv", "packedfold45", "--disable_slomo"], device="cpu")
+    assert rc == 0 and "runs the dense form" in caplog.text
+
+
+def test_missing_input_exits_1(tmp_path):
+    assert cli.main(["-o", str(tmp_path / "out")], device="cpu") == 1
+
+
+def test_profile_writes_a_trace(frames_dir, tmp_path):
+    out = tmp_path / "out"
+    stats = cli.run(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(out),
+                     "--disable_slomo", "--skip_video_output", "--profile"], device="cpu")
+    assert stats.n_frames == 4
+    assert os.path.getsize(out / "torch-trace" / "trace.json") > 0
+
+
+def test_command_line_needs_a_card(frames_dir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(tmp_path / "o")])
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys, v2e_tpu_torch.cli, v2e_tpu_torch.__main__;"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e_tpu'));"
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True)
+    assert r.returncode == 0, r.stdout + r.stderr

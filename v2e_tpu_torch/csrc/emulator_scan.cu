@@ -1,7 +1,8 @@
-// K1: the DVS emulator's sequential core with the closed-form refractory
-// filter, one chunk of F frames over an H*W pixel plane.
+// The DVS emulator's sequential core, one chunk of F frames over an H*W
+// pixel plane: K1 with the closed-form refractory filter, and K2 without it
+// (at the end of this file).
 //
-// Replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_refractory_pallas
+// K1 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_refractory_pallas
 // (_refr_kernel).  The plain PyTorch version is
 // v2e_tpu_torch/ops/kernels/emulator_scan.py::refractory_scan_plain.
 //
@@ -52,6 +53,35 @@ __device__ __forceinline__ int pixel_count(float lp, float base, float pos,
   *pe = floorf(fmaxf(diff, 0.0f) / pos);
   *ne = floorf(fmaxf(-diff, 0.0f) / neg);
   return (int)(*pe + *ne);
+}
+
+// K2: the core without the refractory filter.  Each thread owns one pixel
+// and walks the F frames in order with base in a register.
+__global__ void scan_kernel(const float* __restrict__ lp,
+                            const float* __restrict__ leak,
+                            const uint8_t* __restrict__ shot,
+                            const float* __restrict__ pos,
+                            const float* __restrict__ neg,
+                            float* __restrict__ base, int n_frames, int npix,
+                            int16_t* __restrict__ count_out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npix) return;
+  float b = base[i];
+  float pth = pos[i];
+  float nth = neg[i];
+#pragma unroll 4
+  for (int f = 0; f < n_frames; ++f) {
+    size_t off = (size_t)f * (size_t)npix + (size_t)i;
+    float l = lp[off];
+    if (leak != nullptr) b = b - leak[off];
+    float pe, ne;
+    pixel_count(l, b, pth, nth, &pe, &ne);
+    b = mul_add_once(pe, pth, b);
+    b = mul_add_once(-ne, nth, b);
+    if (shot != nullptr && shot[off] != 0) b = l;
+    count_out[off] = (int16_t)(int)(pe - ne);
+  }
+  base[i] = b;
 }
 
 __global__ void refr_count(const float* __restrict__ lp,
@@ -161,5 +191,45 @@ extern "C" int v2e_refractory_scan(const float* lp, const float* leak,
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
+  return (int)cudaGetLastError();
+}
+
+// K2: the emulator's sequential core without the refractory filter, the
+// path of every configuration with R <= 0 (the clean and noisy presets).
+//
+// Replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_pallas
+// (_kernel).  The plain PyTorch version is
+// v2e_tpu_torch/ops/kernels/emulator_scan.py::scan_plain.
+//
+// Per frame f, in order: base -= leak[f]; pos/neg = floor(relu(+-diff)/thr);
+// base += pos*pos_thr - neg*neg_thr; base = lp[f] where shot noise fired;
+// counts[f] = pos - neg.
+//
+// Design.  No pixel depends on another, so one launch covers the chunk:
+// one thread per pixel loops over the F frames with base in a register
+// (scan_kernel above).  The TPU kernel cut F into segments of 128 frames
+// to bound its VMEM blocks; a thread here holds one frame's values at a
+// time, so there is no segmenting and the counts are those of one pass.
+// Reads of frame f are coalesced across the threads of a warp.
+//
+// Bound on the card: it streams lp and leak (f32) and the shot mask (u8) in
+// and writes counts (i16): 11 bytes per pixel per frame, plus base and the
+// thresholds once; some 15 operations per pixel and frame.  So it is bound
+// by memory bytes.
+//
+// Rounding: as K1, built with --fmad=false, and the base update is one
+// float64 multiply-add rounded once per term (the reference's XLA program
+// contracts it into an FMA); at most one of pos and neg is non-zero.
+//
+// base is updated in place; leak and shot may be null.  One launch on
+// `stream`, no sync.  Returns cudaGetLastError().
+extern "C" int v2e_scan(const float* lp, const float* leak, const uint8_t* shot,
+                        const float* pos, const float* neg, float* base,
+                        int16_t* counts, int n_frames, int npix, void* stream) {
+  if (npix == 0 || n_frames == 0) return 0;
+  const int threads = 256;
+  const int blocks = (npix + threads - 1) / threads;
+  scan_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      lp, leak, shot, pos, neg, base, n_frames, npix, counts);
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,9 @@
 v2e_tpu/emulator/config.py).
 
 The JAX package's `use_pallas_scan` switch has no counterpart: the
-sequential core runs the K1 kernel whenever its tensors are on a CUDA
-device and its plain version when they are on the CPU.  The center-surround
+sequential core runs its kernel (K1, or K2 when the refractory period is
+0) whenever its tensors are on a CUDA device and the kernel's plain version
+when they are on the CPU.  The center-surround
 (CSDVS) and SciDVS pixels are not ported yet and have no fields here.
 """
 from __future__ import annotations

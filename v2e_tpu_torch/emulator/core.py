@@ -8,7 +8,8 @@ A chunk is split in two steps:
   `torch.Generator`;
 * `emulate_chunk_apply`: the deterministic model given those draws —
   lin-log, the photoreceptor IIR lowpass, leak deltas, shot-noise maps,
-  then the sequential core (kernel K1, `refractory_scan`).
+  then the sequential core: kernel K2 (`scan`) when the refractory
+  period is 0, kernel K1 (`refractory_scan`) when it is positive.
 
 Tests hand the apply step the draws the JAX package made, so both packages
 can be compared event for event.
@@ -30,7 +31,7 @@ from v2e_tpu_torch.ops.core import (
     lin_log,
     rescale_intensity_frame,
 )
-from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan
+from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
 
 Draws = Dict[str, Optional[torch.Tensor]]
 
@@ -124,25 +125,32 @@ def emulate_chunk_apply(
         )
         shot_any = (shot_on | shot_off).to(torch.uint8)
 
-    new_base, new_mem, signed16, i0_16, K = refractory_scan(
-        lp_eff.contiguous(), leak_delta, shot_any,
-        params.pos_thres.contiguous(), params.neg_thres.contiguous(),
-        state.base_log_frame.contiguous(), state.timestamp_mem.contiguous(),
-        dts.contiguous(), t_prevs.contiguous(), float(cfg.refractory_period_s),
-    )
-    # per-frame stride from K, the formula of the refractory filter
-    R = scalar(cfg.refractory_period_s, frames)
-    ts_step = torch.maximum(dts, scalar(1e-12, dts)) / torch.clamp(K, min=1).to(torch.float32)
-    m = (torch.floor(R / ts_step) + 1.0).to(torch.int32)
+    lp_eff = lp_eff.contiguous()
+    pos_th = params.pos_thres.contiguous()
+    neg_th = params.neg_thres.contiguous()
+    base = state.base_log_frame.contiguous()
+    if cfg.refractory_period_s <= 0:
+        # the JAX package's refractory-free branch (core.py:832-866)
+        new_base, signed16 = scan(lp_eff, leak_delta, shot_any, pos_th, neg_th, base)
+        new_mem = state.timestamp_mem
+        K = signed16.to(torch.int32).abs().amax(dim=(1, 2))
+        i0_16 = torch.zeros_like(signed16)
+        stride = torch.ones_like(K)
+    else:
+        new_base, new_mem, signed16, i0_16, K = refractory_scan(
+            lp_eff, leak_delta, shot_any, pos_th, neg_th, base,
+            state.timestamp_mem.contiguous(), dts.contiguous(),
+            t_prevs.contiguous(), float(cfg.refractory_period_s),
+        )
+        # per-frame stride from K, the formula of the refractory filter
+        R = scalar(cfg.refractory_period_s, frames)
+        ts_step = torch.maximum(dts, scalar(1e-12, dts)) / torch.clamp(K, min=1).to(torch.float32)
+        m = (torch.floor(R / ts_step) + 1.0).to(torch.int32)
+        stride = torch.where(R > ts_step, m, 1)
     signed = signed16.to(torch.int32)
     num_on = torch.clamp(signed, min=0).sum(dim=(1, 2))
     num_off = torch.clamp(-signed, min=0).sum(dim=(1, 2))
-    outs = {
-        "ev_count": signed16,
-        "i0": i0_16,
-        "stride": torch.where(R > ts_step, m, 1),
-        "K": K,
-    }
+    outs = {"ev_count": signed16, "i0": i0_16, "stride": stride, "K": K}
     if shot_on is not None:
         num_on = num_on + shot_on.sum(dim=(1, 2))
         num_off = num_off + shot_off.sum(dim=(1, 2))

@@ -3,10 +3,12 @@ v2e_tpu/emulator/emulator.py that the fused conversion uses).
 
 Push chunks of frames with `generate_events_batch(frames, times)`, or split
 the work with `submit_batch` / `collect`.  The chunk runs on the device
-(`emulate_and_compact_impl`); `collect` fetches the compacted cells and
-materializes AER events on the host, writing the AEDAT-2 and text sinks.
-The HDF5 and AEDAT-4 sinks, the probe and model-state outputs and the
-multi-device modes are not ported yet.
+(`emulate_and_compact_impl`); `collect` fetches the compacted cells
+(`collect_fetch`) and materializes AER events on the host, writing the
+AEDAT-2 and text sinks (`collect_finalize`).  The JAX package's
+`prewarm_collect` compiles XLA slice programs ahead of time; PyTorch runs
+eagerly, so it has no counterpart.  The HDF5 and AEDAT-4 sinks, the probe
+and model-state outputs and the multi-device modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from v2e_tpu_torch.emulator.core import (
 from v2e_tpu_torch.emulator.events import materialize_events_sparse
 from v2e_tpu_torch.emulator.state import init_state, rebase_state
 from v2e_tpu_torch.ops.noise import compute_photoreceptor_noise_voltage
+from v2e_tpu_torch.utils.paths import check_add_suffix
 
 logger = logging.getLogger(__name__)
 
@@ -39,10 +42,6 @@ def _capacity_bucket(n: int) -> int:
     while cap < n:
         cap *= 2
     return cap
-
-
-def _add_suffix(path: str, suffix: str) -> str:
-    return path if path.endswith(suffix) else path + suffix
 
 
 class EventEmulator:
@@ -115,7 +114,7 @@ class EventEmulator:
             from v2e_tpu_torch.io.aedat2 import AEDat2Output
 
             self.dvs_aedat2 = AEDat2Output(
-                _add_suffix(os.path.join(output_folder or ".", dvs_aedat2), ".aedat"),
+                check_add_suffix(os.path.join(output_folder or ".", dvs_aedat2), ".aedat"),
                 output_width=output_width or 346,
                 output_height=output_height or 260,
                 label_signal_noise=label_signal_noise,
@@ -124,7 +123,7 @@ class EventEmulator:
             from v2e_tpu_torch.io.text import DVSTextOutput
 
             self.dvs_text = DVSTextOutput(
-                _add_suffix(os.path.join(output_folder or ".", dvs_text), ".txt"),
+                check_add_suffix(os.path.join(output_folder or ".", dvs_text), ".txt"),
                 label_signal_noise=label_signal_noise,
             )
 
@@ -260,8 +259,16 @@ class EventEmulator:
         """Fetch and materialize a submitted chunk and write the sinks.
 
         Returns (events f64[N,4], labels, frame_offsets).  Chunks must be
-        collected in submission order.
+        collected in submission order.  `collect(h)` is
+        `collect_finalize(h, collect_fetch(h))`: a pipelined caller runs the
+        fetch of chunk N beside the finalize of chunk N-1.
         """
+        return self.collect_finalize(handle, self.collect_fetch(handle))
+
+    def collect_fetch(self, handle: Dict) -> Dict:
+        """Stage 1 of `collect`: wait for the chunk, copy its scalars and
+        occupied sparse cells to the host, and recompact at a larger
+        capacity on overflow.  Device and copy work only, no sink writes."""
         scalars = handle["packed"]["scalars"].cpu().numpy()
         if handle.get("fused"):
             # fused chunks append the max-flow magnitude (fused.py)
@@ -276,8 +283,14 @@ class EventEmulator:
             logger.info(f"compaction capacity {handle['capacity']} -> {cap}")
             sparse = compact_chunk(self.cfg, handle["outs"], cap)
         self._capacity = max(self._capacity, _capacity_bucket(2 * max(n_occ, 1)))
-        sp = {k: v[:n_occ].cpu().numpy() for k, v in sparse.items()}
+        packed["sparse"] = {k: v[:n_occ].cpu().numpy() for k, v in sparse.items()}
+        return packed
 
+    def collect_finalize(self, handle: Dict, packed: Dict):
+        """Stage 2 of `collect`: materialize the events on the host, count
+        them and write the sinks.  Runs in submission order."""
+        n_occ = packed["n_occ"]
+        sp = packed["sparse"]
         F, H, W = handle["shape"]
         if n_occ:
             events, labels, offsets = materialize_events_sparse(
@@ -302,6 +315,7 @@ class EventEmulator:
         return events, labels, offsets
 
     def cleanup(self) -> None:
+        """Close the event sinks."""
         for sink in (self.dvs_aedat2, self.dvs_text):
             if sink is not None:
                 sink.close()

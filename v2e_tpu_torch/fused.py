@@ -2,12 +2,12 @@
 compaction (port of v2e_tpu/fused.py).
 
 `fused_chunk` runs the whole chunk on the device: preprocess, flow UNet,
-`interpolate_pairs` (K3 warps), postprocess to 8-bit levels, then
-`emulate_and_compact_impl` (K1).  It also returns the chunk's max flow in
-the packed scalars, so the host can pick the next chunk's warp window
-without a mid-chunk sync.  `FusedConverter` drives it with fixed
-upsampling; the first chunk goes the staged way, because the emulator's
-state starts from the first interpolated frame.
+`interpolate_pairs` (K3 or K4 warps), postprocess to 8-bit levels, then
+`emulate_and_compact_impl` (K1 or K2).  It also returns the chunk's max flow in
+the packed scalars, so the host can pick the next chunk's warp window and
+(auto mode) its U without a mid-chunk sync.  `FusedConverter` drives it;
+the first chunk goes the staged way, because the emulator's state starts
+from the first interpolated frame.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ import torch
 from v2e_tpu_torch.emulator.core import draw_chunk_noise, emulate_and_compact_impl
 from v2e_tpu_torch.models.slomo import (
     SuperSloMo,
+    bucket_upsampling_factor,
     interpolate_pairs,
     max_flow_speed,
     postprocess_frames,
@@ -78,46 +79,121 @@ class FusedConverter:
     Wraps a `SuperSloMo` engine and an `EventEmulator`: the first chunk
     runs the staged path (interpolate, then `submit_batch`, which
     initializes the emulator from the first interpolated frame); later
-    chunks run `fused_chunk`.  Each collected chunk's max flow sets the next
-    chunk's warp window (`note_collected`).
+    chunks run `fused_chunk`.  `usable` says whether a configuration
+    qualifies (no host-side consumer of the interpolated frames).
+
+    Auto-upsampling is fused with a one-chunk lookahead: each fused chunk
+    returns its max flow in the packed scalars, and the next chunk's U is
+    the bucketed ceil of it (`note_collected`), the formula the staged path
+    applies to the current chunk's flow (SuperSloMo.choose_upsampling).
+    Each collected chunk's max flow also sets the next warp window, within
+    the 8/16/32 px buckets, so fused chunks run K3 once a fused chunk has
+    been collected; before that they take the staged chunk's window, which
+    is U (K4) when auto-upsampling chose U > 32, as in the JAX package.
     """
 
     def __init__(self, slomo: SuperSloMo, emulator):
         self.slomo = slomo
         self.emulator = emulator
         self._disp: Optional[int] = None  # lookahead warp window
+        self._next_u: Optional[int] = None  # lookahead auto-U bucket
+        self.n_fused = 0  # chunks submitted each way
+        self.n_staged = 0
+
+    @staticmethod
+    def usable(slomo: SuperSloMo, emulator, writes_slomo_video: bool) -> bool:
+        """The fused chunk keeps the interpolated frames on the device: it
+        serves every configuration that does not write them out (the port
+        has neither the multi-device modes nor the HDF5 sink, which the JAX
+        package also excludes)."""
+        return not writes_slomo_video
+
+    def submit_window(self, src_frames, pair_index: int, src_frame_interval: float):
+        """Submit one window of source frames [B+1,H,W] whose first pair is
+        global pair `pair_index`; the interpolated times follow from the
+        chosen U.  Fixed and auto upsampling.
+
+        Returns (collect handle or None, U, times f64[B*U])."""
+        slomo = self.slomo
+        n_pairs = src_frames.shape[0] - 1
+        U = self._next_u if slomo.auto_upsample else slomo.upsampling_factor
+
+        def make_times(u: int) -> np.ndarray:
+            rel = np.arange(n_pairs * u, dtype=np.float64) / u
+            return (pair_index + rel) * src_frame_interval
+
+        if (self.emulator.state is None or U is None
+                or n_pairs * U > slomo.max_out_frames):
+            handle, U = self._submit_staged(src_frames, make_times)
+            return handle, U, make_times(U)
+        times = make_times(U)
+        slomo.last_upsampling_factor = U
+        slomo.upsampling_sum += U
+        slomo.upsampling_samples += 1
+        return self._submit_fused(src_frames, times, U), U, times
 
     def submit(self, src_frames, times: np.ndarray):
-        """Submit source frames [B+1,H,W] with interpolated absolute times
-        [B*U] (f64).  Returns a collect handle, or None (pure-init chunk)."""
-        slomo, em = self.slomo, self.emulator
+        """Fixed-U API: submit source frames [B+1,H,W] with interpolated
+        absolute times [B*U] (f64).  Returns a collect handle, or None
+        (pure-init chunk)."""
+        slomo = self.slomo
         U = slomo.upsampling_factor
         n_out = (src_frames.shape[0] - 1) * U
         if times.shape[0] != n_out:
             raise ValueError(f"times {times.shape} != (B)*U = {n_out}")
+        if self.emulator.state is None or n_out > slomo.max_out_frames:
+            handle, _ = self._submit_staged(src_frames, lambda u: times)
+            return handle
+        slomo.upsampling_sum += U
+        slomo.upsampling_samples += 1
+        return self._submit_fused(src_frames, times, U)
+
+    def _submit_staged(self, src_frames, make_times):
+        """The staged path: the first chunk (the emulator's state starts
+        from its first interpolated frame; auto-U needs the chunk's own
+        flow) or a chunk above max_out_frames (pair slices).  Returns
+        (handle, U)."""
+        em, slomo = self.emulator, self.slomo
         H, W = em.output_height, em.output_width
         if H is None:
             H, W = src_frames.shape[1:]
-        if em.state is None:
-            interp, _ = slomo.interpolate_batch(src_frames, H, W)
-            self._disp = slomo.last_disp
-            return em.submit_batch(interp, times)
+        interp, U = slomo.interpolate_batch(src_frames, H, W)
+        self.n_staged += 1
+        if self._disp is None:
+            self._disp = slomo.last_disp or slomo.warp_max_disp
+        if slomo.auto_upsample:
+            # staged handles carry no max-flow scalar: refresh the lookahead
+            # from this chunk's own choice
+            self._next_u = U
+        return em.submit_batch(interp, make_times(U)), U
+
+    def _submit_fused(self, src_frames, times: np.ndarray, U: int):
+        em, slomo = self.emulator, self.slomo
+        H, W = em.output_height, em.output_width
         disp = self._disp if (slomo.adaptive_disp and self._disp) else slomo.warp_max_disp
         statics = (H, W, U, slomo.max_group, disp, True)
+        self.n_fused += 1
         return em.submit_batch_fused(
             fused_chunk, statics, slomo.flow_net, slomo.interp_net,
             src_frames, times,
         )
 
     def note_collected(self, handle) -> None:
-        """Feed the collected chunk's max flow into the next warp window
-        (call after emulator.collect(handle))."""
+        """Feed the collected chunk's max flow into the next chunk's U
+        bucket (auto mode) and warp window.  Call after the emulator's
+        collect (or collect_fetch) of `handle`."""
         mf = handle.get("max_flow")
         if mf is None or not math.isfinite(mf):
             return
+        slomo = self.slomo
+        if slomo.auto_upsample:
+            u = int(math.ceil(mf))
+            if slomo.upsampling_factor is not None:
+                u = max(u, slomo.upsampling_factor)
+            self._next_u = bucket_upsampling_factor(max(u, 2))
         need = mf * 1.25 + 2.0
         for b in SuperSloMo.DISP_BUCKETS:
-            if need <= b <= self.slomo.warp_max_disp:
+            if need <= b <= slomo.warp_max_disp:
                 self._disp = b
                 return
-        self._disp = self.slomo.warp_max_disp
+        self._disp = slomo.warp_max_disp

@@ -2,16 +2,29 @@
 
 Matches torch ``grid_sample(img, grid)`` with ``align_corners=False`` and
 zero padding, as the original SuperSloMo's backWarp builds its grid: the
-sample lands on ``p + flow - 0.5``.  Every call goes through the K3 wrapper
-(ops/kernels/warp.py): the CUDA kernel on the card, its plain version on
-the CPU.  Unlike the JAX package there is no second kernel for large
-displacements: the gather has no window, so one kernel serves any flow.
+sample lands on ``p + flow - 0.5``.  The warp window `max_disp` that
+SuperSloMo._choose_disp picks for a chunk selects the kernel, as in the
+JAX package:
+
+* ``max_disp <= 32``: K3 (ops/kernels/warp.py), a 4-tap gather that equals
+  `backwarp` for any flow;
+* ``max_disp > 32`` (auto-upsampling chose U > 32): K4
+  (ops/kernels/warp_tiled.py) with ``max_base`` = max_disp rounded up to a
+  multiple of 128, which reproduces the TPU kernel's per-tile base and
+  residual envelope.
+
+On the card each wrapper launches its CUDA kernel; on the CPU it runs its
+plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from v2e_tpu_torch.ops.kernels.warp import bilinear_warp, warp_plain
+from v2e_tpu_torch.ops.kernels.warp_tiled import max_base_for, warp_tiled
+
+# the largest window K3 serves (the JAX package's static warp cap)
+K3_MAX_DISP = 32
 
 
 def backwarp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -24,15 +37,13 @@ def backwarp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 
 def warp(img: torch.Tensor, flow: torch.Tensor, max_disp: int = 32) -> torch.Tensor:
-    """Backwarp [N,C,H,W] images by [N,2,H,W] flow through the K3 wrapper.
-    `max_disp` is recorded, not applied (ops/kernels/warp.py)."""
+    """Backwarp [N,C,H,W] images by [N,2,H,W] flow through the kernel that
+    `max_disp` selects."""
     n, c, H, W = img.shape
     flow = flow.contiguous()
     if c > 1:
         flow = flow.repeat_interleave(c, dim=0)
-    out = bilinear_warp(
-        img.reshape(n * c, H, W).contiguous(), flow[:, 0], flow[:, 1], max_disp
-    )
+    out = warp_planar(img.reshape(n * c, H, W), flow[:, 0], flow[:, 1], max_disp)
     return out.reshape(n, c, H, W)
 
 
@@ -40,4 +51,7 @@ def warp_planar(
     img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, max_disp: int = 32
 ) -> torch.Tensor:
     """`warp` for single-plane images [N,H,W] with separate flow planes."""
-    return bilinear_warp(img.contiguous(), u.contiguous(), v.contiguous(), max_disp)
+    img, u, v = img.contiguous(), u.contiguous(), v.contiguous()
+    if int(max_disp) <= K3_MAX_DISP:
+        return bilinear_warp(img, u, v, max_disp)
+    return warp_tiled(img, u, v, max_base_for(max_disp))

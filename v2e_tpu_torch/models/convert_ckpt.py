@@ -1,5 +1,6 @@
-"""SuperSloMo weights: the npz checkpoint, seeded random weights, and the
-JAX package's parameter trees (port of v2e_tpu/models/convert_ckpt.py).
+"""SuperSloMo weights: the reference's torch checkpoint, the converted npz,
+seeded random weights, and the JAX package's parameter trees (port of
+v2e_tpu/models/convert_ckpt.py).
 
 Parameters travel as the JAX package's layout: nested dicts
 ``params[layer] = {"w": OIHW array, "b": array}`` of numpy arrays, which
@@ -36,10 +37,29 @@ def _npz_to_params(npz, prefix: str) -> NpParams:
 
 
 def load_slomo_params(path: str) -> Tuple[NpParams, NpParams]:
-    """(flow, interp) parameter trees from a converted .npz checkpoint
-    (f32 master copies, whatever the stored dtype)."""
-    npz = np.load(path)
-    return _npz_to_params(npz, "flow"), _npz_to_params(npz, "interp")
+    """(flow, interp) parameter trees from a converted .npz checkpoint or
+    the reference's torch .ckpt (state dicts ``state_dictFC`` and
+    ``state_dictAT``), as f32 master copies whatever the stored dtype.  The
+    .ckpt is read directly with torch.load; nothing is cached beside it."""
+    if path.endswith(".npz"):
+        npz = np.load(path)
+        return _npz_to_params(npz, "flow"), _npz_to_params(npz, "interp")
+    # the reference checkpoint pickles more than tensors (weights_only=False)
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    return tuple(
+        _state_to_params(ckpt[key]) for key in ("state_dictFC", "state_dictAT")
+    )
+
+
+def _state_to_params(state) -> NpParams:
+    names = {k.rsplit(".", 1)[0] for k in state}
+    return {
+        name: {
+            "w": state[f"{name}.weight"].detach().to(torch.float32).numpy(),
+            "b": state[f"{name}.bias"].detach().to(torch.float32).numpy(),
+        }
+        for name in names
+    }
 
 
 def init_random_slomo_params(seed: int = 0, base: int = 32) -> Tuple[NpParams, NpParams]:

@@ -3,17 +3,26 @@
 * the flow UNet on normalised frame pairs gives the bidirectional flows
   F_0_1 and F_1_0;
 * for each intermediate time t = (i + 0.5) / U the flows are blended, both
-  frames are backwarped (K3), the refinement UNet returns flow residuals
-  and a visibility map, and the two warped frames are blended.
+  frames are backwarped (K3, or K4 for windows above 32 px), the
+  refinement UNet returns flow residuals and a visibility map, and the two
+  warped frames are blended.
 
 Intermediate times are folded into the batch in groups (`_group_split`) so
 the refinement UNet sees large batches; each group makes two warp calls of
-2*g*B planes.  Only fixed upsampling is ported: the auto-upsampling mode
-and the file API wait for a later slice.
+2*g*B planes.
+
+Auto-upsampling picks U = ceil(max flow) per chunk so motion stays within
+about 1 px per interpolated frame, rounded up into the bucket ladder
+`UPSAMPLE_BUCKETS` (finer timestamps than asked, never coarser), and
+floored by an explicit --timestamp_resolution.  When that U exceeds the
+32 px warp cap, the chunk's warp window widens to U and the warps go to
+K4 (`_choose_disp`).  The reference's file API (`interpolate`,
+`get_interpolated_timestamps`) is not ported yet.
 """
 from __future__ import annotations
 
 import logging
+import math
 import os
 from typing import Optional, Tuple
 
@@ -36,6 +45,20 @@ MEAN = 0.428
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+
+# Bucket ladder of the data-dependent auto-upsampling factor: ~1.5x steps,
+# never more than 50 % extra interpolated frames.
+UPSAMPLE_BUCKETS = (
+    2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024,
+)
+
+
+def bucket_upsampling_factor(u: int) -> int:
+    """The smallest bucket >= u (the largest bucket above the ladder)."""
+    for b in UPSAMPLE_BUCKETS:
+        if b >= u:
+            return b
+    return UPSAMPLE_BUCKETS[-1]
 
 
 def snap32(x: int) -> int:
@@ -165,10 +188,13 @@ def postprocess_frames(
 
 
 class SuperSloMo:
-    """Batched frame-pair interpolation engine with fixed upsampling.
+    """Batched frame-pair interpolation engine, fixed or auto upsampling.
 
-    `model`: a converted .npz checkpoint, or None for seeded random weights
-    (`base` sets their width; 32 is the original SuperSloMo).
+    `model`: a checkpoint (the reference's torch .ckpt or a converted .npz),
+    or None for seeded random weights (`base` sets their width; 32 is the
+    original SuperSloMo).  A `model` path that does not exist raises
+    FileNotFoundError unless `allow_random` is set; then random weights are
+    used with a warning.
     """
 
     DISP_BUCKETS = (8, 16, 32)
@@ -182,46 +208,88 @@ class SuperSloMo:
         compute_dtype: str = "bfloat16",
         max_group: int = 96,
         warp_max_disp: int = 32,
+        max_out_frames: int = 4096,
         adaptive_disp: bool = True,
         allow_random: bool = False,
         device: Optional[str] = None,
         seed: int = 0,
         base: int = 32,
     ):
-        if auto_upsample:
-            raise NotImplementedError("auto-upsampling is not ported yet")
-        if not isinstance(upsampling_factor, int) or upsampling_factor < 2:
+        if not auto_upsample and (
+            not isinstance(upsampling_factor, int) or upsampling_factor < 2
+        ):
             raise ValueError(
-                f"upsampling_factor={upsampling_factor} must be an int > 1"
+                f"upsampling_factor={upsampling_factor} must be an int > 1 "
+                "when auto_upsample=False"
             )
         self.device = resolve_device(device)
+        self.auto_upsample = auto_upsample
         self.upsampling_factor = upsampling_factor
         self.batch_size = batch_size
         self.compute_dtype = _DTYPES[compute_dtype]
         self.max_group = max_group
         self.warp_max_disp = warp_max_disp
         self.adaptive_disp = adaptive_disp
+        # bound on interpolated frames per device call: at very high U a
+        # whole chunk would take GBs, so pairs are emitted in slices
+        self.max_out_frames = max_out_frames
         self.last_disp: Optional[int] = None
+        self.last_upsampling_factor: Optional[int] = None
+        self.upsampling_sum = 0
+        self.upsampling_samples = 0
 
         if model is not None and os.path.isfile(model):
             flow_np, interp_np = load_slomo_params(model)
             logger.info(f"loaded SuperSloMo weights from {model}")
         elif model is not None and not allow_random:
             raise FileNotFoundError(
-                f"SuperSloMo model checkpoint {model} does not exist; pass "
-                "allow_random=True to proceed with random weights"
+                f"SuperSloMo model checkpoint {model} does not exist or is not "
+                "readable; pass --allow_random_slomo (allow_random=True) to "
+                "proceed with random weights (benchmarking only)"
             )
         else:
+            if model is not None:
+                logger.warning(
+                    f"SuperSloMo checkpoint {model} not found; using random "
+                    "weights (interpolated frames are meaningless)"
+                )
             flow_np, interp_np = init_random_slomo_params(seed=seed, base=base)
         self.flow_net, self.interp_net = from_jax_params(
             flow_np, interp_np, self.device, self.compute_dtype
         )
 
-    def _choose_disp(self, flow_out: torch.Tensor) -> int:
-        """The warp window for this chunk: the chunk's max flow with 1.25x +
-        2 px headroom, bucketed.  The port's warp does not clamp to it
-        (ops/kernels/warp.py); it is recorded and passed on."""
+    def choose_upsampling(self, flow_out: torch.Tensor) -> int:
+        """U for this chunk: fixed, or in auto mode ceil(max flow) floored
+        by `upsampling_factor` and bucketed (one host sync)."""
+        if not self.auto_upsample:
+            u = self.upsampling_factor
+        else:
+            u = int(math.ceil(float(max_flow_speed(flow_out))))
+            if self.upsampling_factor is not None and self.upsampling_factor > u:
+                u = self.upsampling_factor
+            u = bucket_upsampling_factor(max(u, 2))
+        u = max(u, 2)
+        self.last_upsampling_factor = u
+        self.upsampling_sum += u
+        self.upsampling_samples += 1
+        return u
+
+    @property
+    def avg_upsampling_factor(self) -> float:
+        if self.upsampling_samples == 0:
+            return float(self.upsampling_factor or 0)
+        return self.upsampling_sum / self.upsampling_samples
+
+    def _choose_disp(self, flow_out: torch.Tensor, U: int) -> int:
+        """The warp window for this chunk.  In auto mode a U above the
+        32 px cap widens the window to U, which sends the warps to K4.
+        Otherwise the chunk's max flow with 1.25x + 2 px headroom, bucketed
+        to 8, 16 or 32 px; K3 does not clamp to it, so below 32 px the
+        window changes no output."""
         max_disp = self.warp_max_disp
+        if self.auto_upsample and U > max_disp:
+            self.last_disp = U
+            return U
         if self.adaptive_disp:
             need = float(max_flow_speed(flow_out)) * 1.25 + 2.0
             for b in self.DISP_BUCKETS:
@@ -230,6 +298,13 @@ class SuperSloMo:
                     return b
         self.last_disp = max_disp
         return max_disp
+
+    def _flow(self, frames, H: int, W: int):
+        frames = torch.as_tensor(frames).to(self.device)
+        x = preprocess_frames(frames, snap32(H), snap32(W))
+        I0, I1 = x[:-1], x[1:]
+        flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1))
+        return I0, I1, flow_out
 
     def interpolate_batch(
         self, frames, H: int, W: int, quantize: bool = True
@@ -240,14 +315,27 @@ class SuperSloMo:
         Output frame k*U+i sits at source time k + i/U; the last source
         frame is not included (it seeds the next chunk).
         """
-        frames = torch.as_tensor(frames).to(self.device)
-        x = preprocess_frames(frames, snap32(H), snap32(W))
-        I0, I1 = x[:-1], x[1:]
-        flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1))
-        U = self.upsampling_factor
-        max_disp = self._choose_disp(flow_out)
-        interp = interpolate_pairs(
-            self.flow_net, self.interp_net, I0, I1, U, self.max_group,
-            max_disp, flow_out=flow_out,
-        )
-        return postprocess_frames(interp, H, W, quantize), U
+        U, slices = self.interpolate_batch_slices(frames, H, W, quantize)
+        parts = [s for s, _ in slices]
+        return (parts[0] if len(parts) == 1 else torch.cat(parts)), U
+
+    def interpolate_batch_slices(self, frames, H: int, W: int, quantize: bool = True):
+        """Like `interpolate_batch`, but returns (U, generator of
+        (frames [n*U,H,W], pair offset)) in slices of at most
+        `max_out_frames` frames, so device memory stays flat at very high
+        U."""
+        I0, I1, flow_out = self._flow(frames, H, W)
+        U = self.choose_upsampling(flow_out)
+        max_disp = self._choose_disp(flow_out, U)
+        return U, self._emit_slices(I0, I1, flow_out, U, max_disp, H, W, quantize)
+
+    def _emit_slices(self, I0, I1, flow_out, U, max_disp, H, W, quantize=True):
+        B = I0.shape[0]
+        pair_slice = max(1, self.max_out_frames // U)
+        for s in range(0, B, pair_slice):
+            interp = interpolate_pairs(
+                self.flow_net, self.interp_net, I0[s: s + pair_slice],
+                I1[s: s + pair_slice], U, self.max_group, max_disp,
+                flow_out=flow_out[s: s + pair_slice],
+            )
+            yield postprocess_frames(interp, H, W, quantize), s

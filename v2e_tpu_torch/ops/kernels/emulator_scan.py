@@ -1,22 +1,23 @@
-"""K1: the emulator's sequential core with the refractory filter.
+"""K1 and K2: the emulator's sequential core, with and without the
+refractory filter.
 
-Replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_refractory_pallas.
+K1 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_refractory_pallas.
 `refractory_scan` launches the CUDA kernel (csrc/emulator_scan.cu) for CUDA
 tensors and runs `refractory_scan_plain`, the same math as a loop over
-frames in PyTorch, for CPU tensors.
+frames in PyTorch, for CPU tensors.  Design (see the source's note): two
+launches per frame on the current stream, a count pass that reduces the
+frame's largest count K into a device buffer with atomicMax, then an apply
+pass that reads K; no grid barrier, no host sync.  Bound by memory bytes:
+13 B per pixel per frame streamed (lp and leak f32, shot u8, counts and i0
+i16), plus 2F dependent launches.  The TPU sent planes above 256K pixels to
+the XLA scan; this kernel has no size limit.
 
-Design (see the source's note): two launches per frame on the current
-stream, a count pass that reduces the frame's largest count K into a
-device buffer with atomicMax, then an apply pass that reads K; no grid
-barrier, no host sync.  Bound by memory bytes: 13 B per pixel per frame
-streamed (lp and leak f32, shot u8, counts and i0 i16), plus 2F dependent
-launches.
-
-At R = 0 the filter never engages (R > ts_step is false), so the same
-kernel is the plain scan of the refractory-free configurations; the TPU's
-faster kernel for that case (emulator_scan_pallas, K2) is not ported yet.
-The TPU sent planes above 256K pixels to the XLA scan; this kernel has no
-size limit.
+K2 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_pallas, the
+core of every configuration with R <= 0.  `scan` launches its kernel (same
+source) for CUDA tensors and runs `scan_plain` for CPU tensors.  One launch
+per chunk: a thread per pixel loops over the frames with base in a
+register.  Bound by memory bytes: 11 B per pixel per frame (lp and leak
+f32, shot u8, counts i16).
 """
 from __future__ import annotations
 
@@ -170,3 +171,77 @@ def refractory_scan(
 
 # kernel launches made by `refractory_scan` (two per frame)
 refractory_scan.launches = 0
+
+
+def scan_plain(
+    lp: torch.Tensor,
+    leak_delta: Optional[torch.Tensor],
+    shot_any: Optional[torch.Tensor],
+    pos_thres: torch.Tensor,
+    neg_thres: torch.Tensor,
+    base: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The refractory-free core (v2e_tpu emulator_scan.py::_kernel, and the
+    scan body of emulator/core.py:931 at R <= 0) as a loop over frames.
+
+    Returns (new_base f32[H,W], signed counts i16[F,H,W]).
+    """
+    counts = torch.empty(lp.shape, dtype=torch.int16, device=lp.device)
+    for f in range(lp.shape[0]):
+        if leak_delta is not None:
+            base = base - leak_delta[f]
+        pos, neg = compute_event_map(lp[f] - base, pos_thres, neg_thres)
+        base = fma_f32(pos.to(torch.float32), pos_thres, base)
+        base = fma_f32(-neg.to(torch.float32), neg_thres, base)
+        if shot_any is not None:
+            base = torch.where(shot_any[f] != 0, lp[f], base)
+        counts[f] = (pos - neg).to(torch.int16)
+    return base, counts
+
+
+def scan(
+    lp: torch.Tensor,
+    leak_delta: Optional[torch.Tensor],
+    shot_any: Optional[torch.Tensor],
+    pos_thres: torch.Tensor,
+    neg_thres: torch.Tensor,
+    base: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 wrapper: the kernel for CUDA tensors, the plain version for CPU.
+
+    lp and leak_delta f32[F,H,W]; shot_any u8[F,H,W] (nonzero where shot
+    noise fired); thresholds and base f32[H,W].  Leak and shot may be None.
+    Inputs are not modified.  Returns (new_base, signed counts i16[F,H,W]).
+    """
+    if not lp.is_cuda:
+        return scan_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base)
+    F, H, W = lp.shape
+    dev = lp.device
+    f32 = torch.float32
+    _check("lp", lp, f32, (F, H, W), dev)
+    if leak_delta is not None:
+        _check("leak_delta", leak_delta, f32, (F, H, W), dev)
+    if shot_any is not None:
+        _check("shot_any", shot_any, torch.uint8, (F, H, W), dev)
+    for name, t in (("pos_thres", pos_thres), ("neg_thres", neg_thres), ("base", base)):
+        _check(name, t, f32, (H, W), dev)
+
+    new_base = base.clone()
+    counts = torch.empty((F, H, W), dtype=torch.int16, device=dev)
+    fn = build.load("emulator_scan").v2e_scan
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            _ptr(lp), _ptr(leak_delta), _ptr(shot_any), _ptr(pos_thres),
+            _ptr(neg_thres), _ptr(new_base), _ptr(counts), F, H * W,
+            ctypes.c_void_p(stream),
+        )
+    build.check(err, "scan")
+    scan.launches += 1
+    return new_base, counts
+
+
+# kernel launches made by `scan` (one per chunk)
+scan.launches = 0
