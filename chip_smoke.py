@@ -23,10 +23,7 @@ Phases, each printed on its own line with its seconds:
      which must agree;
   5. the measured chunks' events written to AEDAT-2 and text files in a
      temporary directory;
-  6. K2 (refractory-free scan) against its plain version at 160 frames of
-     260x346 with the noisy preset's leak and shot noise: counts equal, base
-     within 1e-6;
-  7. the CLI (v2e_tpu_torch.cli) in-process on the card, on a 346x260 PNG
+  6. the CLI (v2e_tpu_torch.cli) in-process on the card, on a 346x260 PNG
      folder the script writes (33 frames at 30 fps, a bright bar moving
      40 px per frame), twice:
        A. the CLI defaults (video outputs on, so every chunk is staged) with
@@ -39,6 +36,9 @@ Phases, each printed on its own line with its seconds:
      more under torch.profiler for its device time (not counted); and both
      runs at 64x96 with the golden weights on the card and on the CPU,
      which must agree;
+  7. K2 (refractory-free scan) against its plain version at the shape run B
+     launched it with (96 frames of 260x346), with the noisy preset's leak
+     and shot noise: counts equal, base within 1e-6;
   8. K4 (tiled warp) against its plain version at the shape run A launched
      it with, flows with tile means of 33-120 px and a case where the
      residual clamp acts: max abs difference <= 1e-5; F.grid_sample is timed
@@ -220,15 +220,17 @@ def phase_k3(torch, dev):
     }
 
 
-def phase_k2(torch, dev):
-    """K2 at the main path's shape, with the noisy preset's leak and shot
-    noise drawn as emulate_chunk_apply draws them."""
+def phase_k2(torch, dev, shape, launches):
+    """K2 at the shape the CLI's run B launched it with, with the noisy
+    preset's leak and shot noise drawn as emulate_chunk_apply draws them."""
     from v2e_tpu_torch.emulator.config import EmulatorConfig
     from v2e_tpu_torch.ops.core import generate_shot_noise, rescale_intensity_frame
     from v2e_tpu_torch.ops.kernels.emulator_scan import scan, scan_plain
 
     cfg = EmulatorConfig.noisy()
-    F = U * B
+    F, h, w = shape
+    if (h, w) != (H, W):
+        raise AssertionError(f"run B launched K2 at {shape}, not at {H}x{W}")
     g = torch.Generator(device=dev).manual_seed(4)
     f32 = torch.float32
     yy = torch.arange(H, device=dev, dtype=f32)[:, None]
@@ -240,7 +242,7 @@ def phase_k2(torch, dev):
     pos = torch.clamp(cfg.pos_thres + cfg.sigma_thres * torch.randn((H, W), generator=g, device=dev), min=0.01)
     neg = torch.clamp(cfg.neg_thres + cfg.sigma_thres * torch.randn((H, W), generator=g, device=dev), min=0.01)
     rate = torch.exp(2.302585 * cfg.noise_rate_cov_decades * torch.randn((H, W), generator=g, device=dev))
-    dt = 1.0 / (SRC_FPS * U)
+    dt = 1.0 / (SRC_FPS * RUN_B_U)
     leak = (dt * (cfg.leak_rate_hz * rate)
             * (1.0 - cfg.leak_jitter_fraction * torch.randn((F, H, W), generator=g, device=dev)) * pos)
     inten01 = rescale_intensity_frame(torch.exp(lp).clamp(max=255.0))
@@ -267,9 +269,10 @@ def phase_k2(torch, dev):
     b_ms, b_by = bound(nbytes, F * npix * 15)
     log(f"[k2] scan F={F} {H}x{W} (noisy preset leak and shot, {int(shot.sum())} shot "
         f"resets): counts equal, base max abs err {err:.3g}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {int(got[1].abs().sum())} events")
+        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {int(got[1].abs().sum())} events; "
+        f"{launches} launches in run B")
     return {
-        "name": "scan", "route": "cuda",
+        "name": "scan", "route": "cuda", "launches": launches,
         "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
         "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:72",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -277,7 +280,7 @@ def phase_k2(torch, dev):
     }
 
 
-def phase_k4(torch, dev, shape, max_base):
+def phase_k4(torch, dev, shape, max_base, launches):
     """K4 at the shape the CLI's run A launched it with."""
     import torch.nn.functional as Fn
 
@@ -336,9 +339,10 @@ def phase_k4(torch, dev, shape, max_base):
         f"x {int(bu.min())}..{int(bu.max())}, y {int(bv.min())}..{int(bv.max())}), "
         f"{errs[1]:.3g} with the clamp active ({off_envelope:.3g} off the unclamped warp); "
         f"grid_sample {lib_err:.3g}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"grid_sample {library_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"grid_sample {library_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {launches} launches "
+        f"in run A")
     return {
-        "name": "warp_tiled", "route": "cuda",
+        "name": "warp_tiled", "route": "cuda", "launches": launches,
         "source": "v2e_tpu_torch/csrc/warp_tiled.cu",
         "replaces": "v2e_tpu/ops/pallas/warp_v2.py:116",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -347,6 +351,7 @@ def phase_k4(torch, dev, shape, max_base):
 
 
 CLI_FRAMES = 33
+RUN_B_U = 12  # run B's fixed upsampling (--timestamp_resolution 0.003 at 30 fps)
 
 
 def write_cli_input(np, folder):
@@ -375,7 +380,8 @@ def read_aedat2(path):
 def phase_cli(torch, np, tmp, counters):
     """The port's CLI, runs A and B, then run A once more under
     torch.profiler (its launches not counted).  Returns {run: launches by
-    kernel}."""
+    kernel} and {run: the last [N,H,W] (and max_base) each kernel of the
+    run was launched with}."""
     from v2e_tpu_torch import cli
 
     src = os.path.join(tmp, "frames")
@@ -392,7 +398,7 @@ def phase_cli(torch, np, tmp, counters):
     want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp")}
     walls = {}
     absent = {"A": ("bilinear_warp", "scan"), "B": ("warp_tiled", "refractory_scan")}
-    launches = {}
+    launches, shapes = {}, {}
     for name, flags in runs.items():
         out = os.path.join(tmp, "out" + name)
         argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
@@ -404,6 +410,7 @@ def phase_cli(torch, np, tmp, counters):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[name] = {k: fn.launches for k, fn in counters.items()}
+        shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
         walls[name] = wall
         aedat = os.path.join(out, name.lower() + ".aedat")
         payload = read_aedat2(aedat)
@@ -423,7 +430,7 @@ def phase_cli(torch, np, tmp, counters):
         if name == "A" and (min(stats.upsampling) <= 32 or stats.fused_chunks):
             raise AssertionError(f"run A: U {stats.upsampling}, {stats.fused_chunks} fused "
                                  "chunks; wants U > 32 and every chunk staged")
-        if name == "B" and (set(stats.upsampling) != {12} or not stats.fused_chunks):
+        if name == "B" and (set(stats.upsampling) != {RUN_B_U} or not stats.fused_chunks):
             raise AssertionError(f"run B: U {stats.upsampling}, {stats.fused_chunks} fused "
                                  "chunks; wants U = 12 and fused chunks")
         bad = [k for k in want[name] if not launches[name][k]]
@@ -439,7 +446,7 @@ def phase_cli(torch, np, tmp, counters):
     argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", os.path.join(tmp, "outP")]
     profile_device(torch, "cli-profile", lambda: cli.run(argv + runs["A"], device="cuda"),
                    walls["A"] * 1e3, "run A again", top=8)
-    return launches
+    return launches, shapes
 
 
 def phase_cli_small(torch, np, tmp):
@@ -501,9 +508,10 @@ def run_chunks(np, fc, em, src, chunks, b, u, split=None):
     (compaction waits for it), collect fetches and materializes on the host."""
     out = []
     for c in chunks:
-        times = (c * b + np.arange(b * u, dtype=np.float64) / u) / SRC_FPS
         t0 = time.perf_counter()
-        handle = fc.submit(src[c * b: c * b + b + 1], times)
+        handle, got_u, times = fc.submit_window(src[c * b: c * b + b + 1], c * b, 1.0 / SRC_FPS)
+        if got_u != u:
+            raise AssertionError(f"chunk {c} ran at U={got_u}, not {u}")
         if handle is None:
             continue
         t1 = time.perf_counter()
@@ -692,24 +700,21 @@ def main() -> int:
         f"({time.perf_counter() - t:.2f} s)")
 
     t = time.perf_counter()
-    k2 = phase_k2(torch, dev)
-    log(f"[k2] {time.perf_counter() - t:.2f} s")
-
-    t = time.perf_counter()
     counters = {"refractory_scan": refractory_scan, "scan": scan,
                 "bilinear_warp": bilinear_warp, "warp_tiled": warp_tiled}
     with tempfile.TemporaryDirectory() as tmp:
-        cli_launches = phase_cli(torch, np, tmp, counters)
-        k4_call = warp_tiled.last_call  # run A's last launch: (shape, max_base)
+        cli_launches, cli_shapes = phase_cli(torch, np, tmp, counters)
         log(f"[cli] {time.perf_counter() - t:.2f} s")
         t = time.perf_counter()
         phase_cli_small(torch, np, tmp)
         log(f"[cli-small] {time.perf_counter() - t:.2f} s")
-    k2["launches"] = cli_launches["B"]["scan"]
 
     t = time.perf_counter()
-    k4 = phase_k4(torch, dev, *k4_call)
-    k4["launches"] = cli_launches["A"]["warp_tiled"]
+    k2 = phase_k2(torch, dev, cli_shapes["B"]["scan"], cli_launches["B"]["scan"])
+    log(f"[k2] {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    k4 = phase_k4(torch, dev, *cli_shapes["A"]["warp_tiled"], cli_launches["A"]["warp_tiled"])
     log(f"[k4] {time.perf_counter() - t:.2f} s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -79,8 +79,9 @@ class FusedConverter:
     Wraps a `SuperSloMo` engine and an `EventEmulator`: the first chunk
     runs the staged path (interpolate, then `submit_batch`, which
     initializes the emulator from the first interpolated frame); later
-    chunks run `fused_chunk`.  `usable` says whether a configuration
-    qualifies (no host-side consumer of the interpolated frames).
+    chunks run `fused_chunk`.  It serves the configurations in which nothing
+    on the host consumes the interpolated frames (the CLI without its slomo
+    video).
 
     Auto-upsampling is fused with a one-chunk lookahead: each fused chunk
     returns its max flow in the packed scalars, and the next chunk's U is
@@ -99,14 +100,6 @@ class FusedConverter:
         self._next_u: Optional[int] = None  # lookahead auto-U bucket
         self.n_fused = 0  # chunks submitted each way
         self.n_staged = 0
-
-    @staticmethod
-    def usable(slomo: SuperSloMo, emulator, writes_slomo_video: bool) -> bool:
-        """The fused chunk keeps the interpolated frames on the device: it
-        serves every configuration that does not write them out (the port
-        has neither the multi-device modes nor the HDF5 sink, which the JAX
-        package also excludes)."""
-        return not writes_slomo_video
 
     def submit_window(self, src_frames, pair_index: int, src_frame_interval: float):
         """Submit one window of source frames [B+1,H,W] whose first pair is
@@ -131,22 +124,6 @@ class FusedConverter:
         slomo.upsampling_sum += U
         slomo.upsampling_samples += 1
         return self._submit_fused(src_frames, times, U), U, times
-
-    def submit(self, src_frames, times: np.ndarray):
-        """Fixed-U API: submit source frames [B+1,H,W] with interpolated
-        absolute times [B*U] (f64).  Returns a collect handle, or None
-        (pure-init chunk)."""
-        slomo = self.slomo
-        U = slomo.upsampling_factor
-        n_out = (src_frames.shape[0] - 1) * U
-        if times.shape[0] != n_out:
-            raise ValueError(f"times {times.shape} != (B)*U = {n_out}")
-        if self.emulator.state is None or n_out > slomo.max_out_frames:
-            handle, _ = self._submit_staged(src_frames, lambda u: times)
-            return handle
-        slomo.upsampling_sum += U
-        slomo.upsampling_samples += 1
-        return self._submit_fused(src_frames, times, U)
 
     def _submit_staged(self, src_frames, make_times):
         """The staged path: the first chunk (the emulator's state starts

@@ -6,8 +6,8 @@ Each window is interpolated U-fold on the device and feeds the emulator
 without returning to the host; only the compacted events come back.  Two
 ways through a window:
 
-* fused (`FusedConverter.usable`: nothing on the host needs the
-  interpolated frames): one `fused_chunk` per window after the first, with
+* fused (`FusedConverter`, when nothing on the host needs the
+  interpolated frames: the slomo video is not written): one `fused_chunk` per window after the first, with
   U from a one-chunk lookahead in auto mode;
 * staged (the slomo video is written, or the first window): interpolate in
   pair slices (`SuperSloMo.interpolate_batch_slices`, where auto-U and the
@@ -84,11 +84,8 @@ def run_interpolated_pipeline(
                 output_height, output_width, frame_rate=args.avi_frame_rate,
             )
 
-    fused = (
-        FusedConverter(slomo, emulator)
-        if FusedConverter.usable(slomo, emulator, slomo_writer is not None)
-        else None
-    )
+    # the fused chunk keeps the interpolated frames on the device
+    fused = FusedConverter(slomo, emulator) if slomo_writer is None else None
     if fused is not None:
         logger.info("using fused conversion chunks")
     pipeline = ChunkPipeline(

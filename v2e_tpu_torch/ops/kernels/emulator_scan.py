@@ -213,6 +213,7 @@ def scan(
     noise fired); thresholds and base f32[H,W].  Leak and shot may be None.
     Inputs are not modified.  Returns (new_base, signed counts i16[F,H,W]).
     """
+    scan.last_call = tuple(lp.shape)
     if not lp.is_cuda:
         return scan_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base)
     F, H, W = lp.shape
@@ -243,5 +244,6 @@ def scan(
     return new_base, counts
 
 
-# kernel launches made by `scan` (one per chunk)
+# kernel launches made by `scan` (one per chunk), and the last call's [F,H,W]
 scan.launches = 0
+scan.last_call = None
