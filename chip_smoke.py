@@ -25,24 +25,37 @@ Phases, each printed on its own line with its seconds:
      temporary directory;
   6. the CLI (v2e_tpu_torch.cli) in-process on the card, on a 346x260 PNG
      folder the script writes (33 frames at 30 fps, a bright bar moving
-     40 px per frame), twice:
+     40 px per frame), three times:
        A. the CLI defaults (video outputs on, so every chunk is staged) with
           auto-upsampling floored at U=67 (bucket 96 > 32): K4 and K1;
        B. --dvs_params noisy, fixed U=12, --skip_video_output (fused chunks
           after the first): K2 and K3;
+       C. run B's flags and --unet_conv packedz: K2, K3 and K5 (the UNets'
+          up4 and up5 conv pairs), with run B's random weights;
      each with the kernels' launch counters set to 0 before and read after,
      and its outputs checked (AEDAT-2 payload of 8 B per event, event times
      inside the input's span, non-empty videos in run A); then run A once
-     more under torch.profiler for its device time (not counted); and both
-     runs at 64x96 with the golden weights on the card and on the CPU,
-     which must agree;
+     more under torch.profiler for its device time (not counted); and runs
+     A, B, B with --unet_conv packedz and B with --unet_conv packedfold45
+     at 64x96 with the golden weights on the card and on the CPU, which
+     must agree;
   7. K2 (refractory-free scan) against its plain version at the shape run B
      launched it with (96 frames of 260x346), with the noisy preset's leak
      and shot noise: counts equal, base within 1e-6;
   8. K4 (tiled warp) against its plain version at the shape run A launched
      it with, flows with tile means of 33-120 px and a case where the
      residual clamp acts: max abs difference <= 1e-5; F.grid_sample is timed
-     beside it.
+     beside it;
+  9. K5 (3x3 conv + bias + LeakyReLU, NHWC bf16) against its plain version
+     (cuDNN's TF32 off) at the up4 and up5 shapes run C launched it with:
+     every element within one bf16 ulp (1e-5 absolute near zero, where the
+     two float32 sums' own rounding exceeds an ulp), at most 0.5 % of them
+     differing; cuDNN's conv + bias and leaky_relu in bf16
+     channels_last is timed beside it;
+ 10. the interp UNet's forward at the fused chunk's shape (80 x 12 channels
+     of 256x320, bf16, base 32) in the conv forms dense, packedz, fold45,
+     packedfold45 and fold: time and max abs difference from dense, and
+     the device kernels of one dense and one fold45 forward, printed only.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
@@ -61,9 +74,11 @@ import time
 
 TIME_LIMIT_S = 1100  # a hang becomes a traceback and a non-zero exit
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 (non-tensor) ops/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) ops/s
+# and dense bf16 tensor-core FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 
 H, W = 260, 346
 U, B = 10, 16
@@ -83,9 +98,9 @@ def nvidia_smi() -> str:
     return out[0].strip()
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_OPS_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = nops / PEAK_F32_OPS_S * 1e3
+    t_ops = nops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -378,11 +393,13 @@ def read_aedat2(path):
 
 
 def phase_cli(torch, np, tmp, counters):
-    """The port's CLI, runs A and B, then run A once more under
+    """The port's CLI, runs A, B and C, then run A once more under
     torch.profiler (its launches not counted).  Returns {run: launches by
     kernel} and {run: the last [N,H,W] (and max_base) each kernel of the
-    run was launched with}."""
+    run was launched with; for K5 every ((N,H,W,Ci), Co) with its
+    launches}."""
     from v2e_tpu_torch import cli
+    from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane
 
     src = os.path.join(tmp, "frames")
     write_cli_input(np, src)
@@ -395,15 +412,20 @@ def phase_cli(torch, np, tmp, counters):
               "--auto_timestamp_resolution", "False", "--timestamp_resolution", "0.003",
               "--skip_video_output", "--dvs_aedat2", "b.aedat"],
     }
-    want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp")}
-    walls = {}
-    absent = {"A": ("bilinear_warp", "scan"), "B": ("warp_tiled", "refractory_scan")}
+    runs["C"] = runs["B"][:-1] + ["c.aedat", "--unet_conv", "packedz"]
+    want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp"),
+            "C": ("scan", "bilinear_warp", "conv3x3_lane")}
+    walls, events = {}, {}
+    absent = {"A": ("bilinear_warp", "scan", "conv3x3_lane"),
+              "B": ("warp_tiled", "refractory_scan", "conv3x3_lane"),
+              "C": ("warp_tiled", "refractory_scan")}
     launches, shapes = {}, {}
     for name, flags in runs.items():
         out = os.path.join(tmp, "out" + name)
         argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
         for fn in counters.values():
             fn.launches = 0
+        conv3x3_lane.shapes = {}
         torch.cuda.synchronize()
         t = time.perf_counter()
         stats = cli.run(argv, device="cuda")
@@ -411,10 +433,16 @@ def phase_cli(torch, np, tmp, counters):
         wall = time.perf_counter() - t
         launches[name] = {k: fn.launches for k, fn in counters.items()}
         shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
+        if name == "C":
+            shapes[name]["conv3x3_lane"] = dict(conv3x3_lane.shapes)
         walls[name] = wall
+        events[name] = stats.num_events
         aedat = os.path.join(out, name.lower() + ".aedat")
         payload = read_aedat2(aedat)
-        if stats.num_events <= 0 or payload != 8 * stats.num_events:
+        # the sink drops leading events whose first byte would be '#' (a
+        # header line to jAER's parser): a few at most, and rarely any
+        dropped = stats.num_events - payload // 8
+        if stats.num_events <= 0 or payload % 8 or not 0 <= dropped <= 4:
             raise AssertionError(f"run {name}: AEDAT-2 payload {payload} B for "
                                  f"{stats.num_events} events")
         if not (stats.first_ts >= 0.0 and stats.last_ts <= span + 1e-9):
@@ -430,9 +458,9 @@ def phase_cli(torch, np, tmp, counters):
         if name == "A" and (min(stats.upsampling) <= 32 or stats.fused_chunks):
             raise AssertionError(f"run A: U {stats.upsampling}, {stats.fused_chunks} fused "
                                  "chunks; wants U > 32 and every chunk staged")
-        if name == "B" and (set(stats.upsampling) != {RUN_B_U} or not stats.fused_chunks):
-            raise AssertionError(f"run B: U {stats.upsampling}, {stats.fused_chunks} fused "
-                                 "chunks; wants U = 12 and fused chunks")
+        if name in "BC" and (set(stats.upsampling) != {RUN_B_U} or not stats.fused_chunks):
+            raise AssertionError(f"run {name}: U {stats.upsampling}, {stats.fused_chunks} "
+                                 "fused chunks; wants U = 12 and fused chunks")
         bad = [k for k in want[name] if not launches[name][k]]
         bad += [k for k in absent[name] if launches[name][k]]
         if bad:
@@ -441,8 +469,15 @@ def phase_cli(torch, np, tmp, counters):
         log(f"[cli] run {name}: U {stats.upsampling}, {path}; launches "
             + ", ".join(f"{k} {v}" for k, v in launches[name].items())
             + f"; {stats.n_frames} frames, {stats.num_events} events, AEDAT-2 "
-            f"{payload} B; wall {wall:.2f} s, realtime factor "
+            f"{payload} B ({dropped} leading events dropped by the '#' guard); "
+            f"wall {wall:.2f} s, realtime factor "
             f"{stats.realtime_factor:.4f} (cli {stats.wall_s:.2f} s)")
+    k5 = shapes["C"]["conv3x3_lane"]
+    log("[cli] run C: K5 launches by ((N,H,W,Ci), Co): "
+        + "; ".join(f"{k} x{v}" for k, v in sorted(k5.items()))
+        + f"; events C {events['C']} vs B {events['B']} "
+        f"({(events['C'] - events['B']) / events['B']:+.3%}), same random weights, "
+        "K5's float32 epilogue against the dense bf16 one")
     argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", os.path.join(tmp, "outP")]
     profile_device(torch, "cli-profile", lambda: cli.run(argv + runs["A"], device="cuda"),
                    walls["A"] * 1e3, "run A again", top=8)
@@ -451,10 +486,12 @@ def phase_cli(torch, np, tmp, counters):
 
 def phase_cli_small(torch, np, tmp):
     """Runs A and B at 64x96 with the golden SuperSloMo fixture and
-    deterministic emulator flags, on the card and on the CPU: the same U
-    and chunk paths, and event totals within 1 % (the CLI computes the
-    UNets in bf16, whose sums cuDNN and the CPU round differently, which
-    flips some interpolated pixels by one 8-bit level)."""
+    deterministic emulator flags, and run B with --unet_conv packedz (K5 on
+    up2 and up3 at base 8) and with --unet_conv packedfold45 (the fold on
+    up4 and up5), on the card and on the CPU: the same U and chunk paths,
+    and event totals within 1 % (the CLI computes the UNets in bf16, whose
+    sums cuDNN and the CPU round differently, which flips some
+    interpolated pixels by one 8-bit level)."""
     import cv2
 
     from v2e_tpu_torch import cli
@@ -475,10 +512,12 @@ def phase_cli_small(torch, np, tmp):
     runs = {"A": ["--auto_timestamp_resolution", "True", "--timestamp_resolution", "0.0005"],
             "B": ["--refractory_period", "0", "--auto_timestamp_resolution", "False",
                   "--timestamp_resolution", "0.003", "--skip_video_output"]}
+    runs["B packedz"] = runs["B"] + ["--unet_conv", "packedz"]
+    runs["B packedfold45"] = runs["B"] + ["--unet_conv", "packedfold45"]
     for name, flags in runs.items():
         res = {}
         for device in ("cuda", "cpu"):
-            out = os.path.join(tmp, f"small{name}-{device}")
+            out = os.path.join(tmp, f"small{name.replace(' ', '-')}-{device}")
             st = cli.run(common + flags + ["-o", out], device=device)
             res[device] = (st.upsampling, st.staged_chunks, st.fused_chunks, st.num_events)
         (ug, sg, fg, ng), (uc, sc, fc_, nc) = res["cuda"], res["cpu"]
@@ -486,6 +525,110 @@ def phase_cli_small(torch, np, tmp):
             raise AssertionError(f"small run {name}: card {res['cuda']} vs CPU {res['cpu']}")
         log(f"[cli-small] run {name} at 64x96: U {ug}, {sg} staged + {fg} fused chunks on "
             f"both; events card {ng} vs CPU {nc} ({abs(ng - nc) / nc:.3%})")
+
+
+def phase_k5(torch, dev, shapes, launches):
+    """K5 at the up4 and up5 shapes run C launched it with (for each (Ci,
+    Co), the largest batch: the interp UNet's), bf16 as the CLI runs it."""
+    import torch.nn.functional as Fn
+
+    from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane, conv3x3_lane_plain
+
+    picked = {}
+    for (xs, co), _ in shapes.items():
+        key = (xs[3], co)
+        if key not in picked or xs[0] > picked[key][0][0]:
+            picked[key] = (xs, co)
+    if set(picked) != {(128, 64), (64, 32)}:
+        raise AssertionError(f"run C launched K5 at {sorted(shapes)}, not at up4 and up5")
+    g = torch.Generator(device=dev).manual_seed(7)
+    torch.backends.cudnn.allow_tf32 = False
+    before = conv3x3_lane.launches
+    rows, err, tot = [], 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
+                               "flops": 0.0}
+    for (n, h, w, ci), co in sorted(picked.values(), key=lambda v: -v[0][3]):
+        x = torch.randn((n, h, w, ci), generator=g, device=dev).to(torch.bfloat16)
+        wt = torch.randn((co, ci, 3, 3), generator=g, device=dev) / (9 * ci) ** 0.5
+        b = 0.1 * torch.randn((co,), generator=g, device=dev)
+        got = conv3x3_lane(x, wt, b)
+        want = conv3x3_lane_plain(x, wt, b)
+        torch.cuda.synchronize()
+        a, r = got.double(), want.double()
+        m = torch.maximum(a.abs(), r.abs())
+        tol = torch.clamp(torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8), min=1e-5)
+        n_bad = int(((a - r).abs() > tol).sum())
+        share = float((a != r).double().mean())
+        e = float((a - r).abs().max())
+        if n_bad or share > 5e-3:
+            raise AssertionError(f"K5 at {(n, h, w, ci, co)}: {n_bad} elements beyond one "
+                                 f"bf16 ulp, {share:.4%} differ from the plain version")
+        err = max(err, e)
+        # yardstick: cuDNN's conv with bias, then leaky_relu, bf16 channels_last
+        xc = x.permute(0, 3, 1, 2)
+        wc = wt.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bb = b.to(torch.bfloat16)
+
+        def lib():
+            return Fn.leaky_relu(Fn.conv2d(xc, wc, bb, padding=1), 0.1)
+
+        ms = time_ms(torch, lambda: conv3x3_lane(x, wt, b), reps=10)
+        plain_ms = time_ms(torch, lambda: conv3x3_lane_plain(x, wt, b), reps=3)
+        library_ms = time_ms(torch, lib, reps=10)
+        nbytes = 2 * n * h * w * (ci + co) + 2 * 9 * ci * co + 4 * co
+        flops = 2 * n * h * w * ci * co * 9
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_OPS_S)
+        log(f"[k5] conv3x3_lane {n}x{h}x{w} {ci}->{co} bf16: max abs err {e:.3g}, "
+            f"{share:.4%} of elements differ (all within one bf16 ulp); kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, cuDNN conv+leaky_relu {library_ms:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP), "
+            f"{flops / ms / 1e9:.1f} TFLOP/s")
+        rows.append(f"{n}x{h}x{w}x{ci}->{co}")
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                     ("bytes", nbytes), ("flops", flops)):
+            tot[k] += v
+    torch.backends.cudnn.allow_tf32 = True
+    conv3x3_lane.launches = before  # comparison launches do not count
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], PEAK_BF16_OPS_S)
+    log(f"[k5] {launches} launches in run C; both shapes together (one call each): "
+        f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
+        f"{tot['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return {
+        "name": "conv3x3_lane", "route": "cuda", "launches": launches,
+        "source": "v2e_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "v2e_tpu/ops/pallas/conv3.py:201",
+        "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
+        "shapes": rows,
+    }
+
+
+def phase_unet_forms(torch, dev, n=U * B // 2, h=256, w=320):
+    """The interp UNet's forward in five conv forms at the fused chunk's
+    shape (n = 80: _group_split(10, 16, 96) gives 2 groups of 5 x 16 pairs):
+    times and differences from dense, printed only."""
+    from v2e_tpu_torch.models.convert_ckpt import from_jax_params, init_random_slomo_params
+    from v2e_tpu_torch.models.unet import unet_apply
+
+    _, net = from_jax_params(*init_random_slomo_params(seed=0), device=dev,
+                             dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = 0.3 * torch.randn((n, 12, h, w), generator=g, device=dev)
+    dense = None
+    for form in ("dense", "packedz", "fold45", "packedfold45", "fold"):
+        with torch.no_grad():
+            out = unet_apply(net, x, form)
+            ms = time_ms(torch, lambda: unet_apply(net, x, form), reps=3)
+        if dense is None:
+            dense, dense_ms = out, ms
+        diff = float((out - dense).abs().max())
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"unet form {form}: non-finite output")
+        log(f"[unet-forms] interp UNet {n}x12x{h}x{w} bf16 {form}: {ms:.2f} ms "
+            f"({ms / dense_ms:.3f} of dense), max abs diff from dense {diff:.3g}")
+    for form in ("dense", "fold45"):
+        with torch.no_grad():
+            profile_device(torch, "unet-forms", lambda: unet_apply(net, x, form), dense_ms,
+                           f"{form} forward (share of dense's time)", top=5)
 
 
 def check_events(np, ev, w, h, t_lo, t_hi):
@@ -608,6 +751,7 @@ def main() -> int:
     from v2e_tpu_torch.io.text import DVSTextOutput
     from v2e_tpu_torch.models.slomo import SuperSloMo
     from v2e_tpu_torch.ops.kernels import build
+    from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane
     from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
     from v2e_tpu_torch.ops.kernels.warp import bilinear_warp
     from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled
@@ -701,7 +845,8 @@ def main() -> int:
 
     t = time.perf_counter()
     counters = {"refractory_scan": refractory_scan, "scan": scan,
-                "bilinear_warp": bilinear_warp, "warp_tiled": warp_tiled}
+                "bilinear_warp": bilinear_warp, "warp_tiled": warp_tiled,
+                "conv3x3_lane": conv3x3_lane}
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_shapes = phase_cli(torch, np, tmp, counters)
         log(f"[cli] {time.perf_counter() - t:.2f} s")
@@ -717,8 +862,16 @@ def main() -> int:
     k4 = phase_k4(torch, dev, *cli_shapes["A"]["warp_tiled"], cli_launches["A"]["warp_tiled"])
     log(f"[k4] {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    k5 = phase_k5(torch, dev, cli_shapes["C"]["conv3x3_lane"], cli_launches["C"]["conv3x3_lane"])
+    log(f"[k5] {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    phase_unet_forms(torch, dev)
+    log(f"[unet-forms] {time.perf_counter() - t:.2f} s")
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -51,7 +51,6 @@ def test_cli_writes_videos_and_aedat(frames_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--unet_conv", "packedz"],
     ["--dvs_h5", "ev.h5"],
     ["--dvs_aedat4", "ev.aedat4"],
     ["--ddd_output"],
@@ -75,10 +74,25 @@ def test_rejected_flags_exit_nonzero(frames_dir, tmp_path, caplog, flags):
 
 
 def test_tpu_layout_unet_forms_run_dense(frames_dir, tmp_path, caplog):
+    """The log says what each --unet_conv form runs on the port: packed,
+    packedup and blocked are TPU layouts of the dense UNet, the fold forms
+    fold the named up levels, packedz sends the up tail to K5."""
     caplog.set_level(logging.INFO)
-    rc = cli.main(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(tmp_path / "out"),
-                   "--unet_conv", "packedfold45", "--disable_slomo"], device="cpu")
-    assert rc == 0 and "runs the dense form" in caplog.text
+    said = {
+        "packed": "runs the dense form",
+        "packedup": "runs the dense form",
+        "blocked": "runs the dense form",
+        "packedfold45": "upsample and conv1 of up4, up5 run as one folded half-res conv",
+        "fold": "upsample and conv1 of up1, up2, up3, up4, up5 run as one folded",
+        "packedz": "run through the K5 conv kernel",
+    }
+    for form, text in said.items():
+        caplog.clear()
+        rc = cli.main(["-i", frames_dir, "--input_frame_rate", "30",
+                       "-o", str(tmp_path / form), "--unet_conv", form, "--disable_slomo"],
+                      device="cpu")
+        assert rc == 0 and text in caplog.text, form
+        assert ("dense form" in caplog.text) == (form in ("packed", "packedup", "blocked"))
 
 
 def test_missing_input_exits_1(tmp_path):

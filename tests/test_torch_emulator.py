@@ -182,3 +182,48 @@ def test_moving_dot_clean_conversion_aedat2_and_text(tmp_path):
         jp = payload(tmp_path / "jax" / name, text)
         tp = payload(tmp_path / "port" / name, text)
         assert len(tp) > 1000 and tp == jp, name
+
+
+def test_time_rebase_over_20_seconds():
+    """600 frames at 30 fps (20 s) of a bar moving over a 40x56 texture, in
+    chunks of 50, with the clean preset and a 50 ms refractory period: both
+    emulators rebase their chunk-relative float32 times at 8.33 s and
+    16.67 s, and every event is equal.  Event times may differ by one
+    float64 ulp: v2e_tpu's native materialization is built without
+    -ffp-contract=off and contracts t0 + (i + 1) * step into an FMA
+    (v2e_tpu/native/aer_kernels.cpp:299); the port rounds twice, as
+    v2e_tpu's numpy path does."""
+    h, w, n, fps = 40, 56, 600, 30.0
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    tex = 90 + 40 * np.sin(xx / 5.0) * np.cos(yy / 7.0)
+    frames = np.stack([np.where(np.abs((xx - 1.5 * i) % w - 20) < 3, tex + 110, tex)
+                       for i in range(n)]).round().astype(np.float32)
+    times = np.arange(n) / fps
+    kw = dict(refractory_period_s=0.05, seed=5, output_width=w, output_height=h)
+    jem = JaxEmulator(**kw)
+    tem = EventEmulator(device="cpu", **kw)
+    for em in (jem, tem):
+        em.set_dvs_params("clean")
+        em.cfg = dataclasses.replace(em.cfg, refractory_period_s=0.05)
+    jem.generate_events_batch(frames[:1], times[:1])
+    tem.generate_events_batch(frames[:1], times[:1])
+    tem.params, tem.state = from_jax_emulator(fields(jem.params), fields(jem.state), "cpu")
+    origins, n_events, n_ulp = [], 0, 0
+    for s in range(1, n, 50):
+        je = jem.generate_events_batch(frames[s:s + 50], times[s:s + 50])
+        te = tem.generate_events_batch(frames[s:s + 50], times[s:s + 50])
+        assert (je is None) == (te is None)
+        assert tem.t_origin == jem.t_origin
+        origins.append(tem.t_origin)
+        if je is None:
+            continue
+        assert te.shape == je.shape
+        np.testing.assert_array_equal(te[:, 1:], je[:, 1:])
+        dt = np.abs(te[:, 0] - je[:, 0])
+        assert (dt <= np.spacing(np.abs(je[:, 0]))).all()
+        n_events += len(je)
+        n_ulp += int((dt > 0).sum())
+    jem.cleanup()
+    tem.cleanup()
+    np.testing.assert_allclose(sorted(set(origins) - {0.0}), [250 / fps, 500 / fps], rtol=1e-12)
+    assert n_events > 100_000 and n_ulp <= 1e-3 * n_events

@@ -66,7 +66,7 @@ def case():
     tf, ti = from_jax_params(to_np(jf), to_np(ji), "cpu")
     tparams, tstate = from_jax_emulator(np_fields(params), np_fields(state), "cpu")
     t_state, t_outs, t_packed = fused_chunk(
-        EmulatorConfig(**EMU), (H, W, U, 8, 32, True), tparams, tstate, tf, ti, CAP,
+        EmulatorConfig(**EMU), (H, W, U, 8, 32, True, "dense"), tparams, tstate, tf, ti, CAP,
         torch.from_numpy(src), torch.from_numpy(times), None, NO_DRAWS)
     return dict(src=src, times=times, jf=jf, ji=ji, tf=tf, ti=ti, jcfg=jcfg,
                 params=params, state=state, tparams=tparams, tstate=tstate,

@@ -4,11 +4,19 @@ Marked `gpu`; each test skips when no CUDA device is present (decided in a
 fixture, so every test worker collects the same tests).  On an H100:
     python -m pytest tests/test_torch_kernels_gpu.py -q
 Tolerance: K1 counts, i0 and K identical, base and memory within 1e-6; K2
-counts identical, base within 1e-6; K3 and K4 within 1e-5.
+counts identical, base within 1e-6; K3 and K4 within 1e-5; K5 in float32
+within 1e-5 (float32 sums in another order, inputs of unit scale: measured
+4.3e-6), in bf16 within one bf16 ulp of each element, or 1e-5 absolute near
+zero where the two float32 sums' own rounding exceeds an ulp (measured up
+to 4e-6 at values near 1e-4), with at most 0.5 % of the elements differing
+(measured 0.06 % at up4), against the plain version run with cuDNN's TF32
+off.
 """
+import numpy as np
 import pytest
 import torch
 
+from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane, conv3x3_lane_plain
 from v2e_tpu_torch.ops.kernels.emulator_scan import (
     refractory_scan,
     refractory_scan_plain,
@@ -108,3 +116,56 @@ def test_kernel_wrappers_check_their_inputs(cuda):
         warp_tiled(img, img, img.double(), 128)
     with pytest.raises(ValueError):
         scan(img, None, None, img[0].double(), img[0], img[0])
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = old
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (2, 128, 160, 128, 64),  # up4
+    (2, 256, 320, 64, 32),   # up5
+    (3, 13, 21, 24, 40),     # ragged tiles, Co not a multiple of 16
+    (1, 9, 30, 20, 80),      # Ci not a multiple of 8, two channel blocks
+])
+def test_conv3x3_kernel_matches_plain(no_tf32, dtype, n, h, w, ci, co):
+    g = torch.Generator(device=no_tf32).manual_seed(6)
+    dt = getattr(torch, dtype)
+    x = torch.randn((n, h, w, ci), generator=g, device=no_tf32).to(dt)
+    wt = torch.randn((co, ci, 3, 3), generator=g, device=no_tf32) / (9 * ci) ** 0.5
+    b = 0.1 * torch.randn((co,), generator=g, device=no_tf32)
+    for slope in (0.1, None):
+        n0 = conv3x3_lane.launches
+        got = conv3x3_lane(x, wt, b, slope)
+        assert conv3x3_lane.launches == n0 + 1
+        want = conv3x3_lane_plain(x, wt, b, slope)
+        assert got.dtype == dt and got.shape == want.shape == (n, h, w, co)
+        a, r = got.double().cpu().numpy(), want.double().cpu().numpy()
+        if dtype == "float32":
+            assert np.abs(a - r).max() <= 1e-5
+            continue
+        m = np.maximum(np.abs(a), np.abs(r))
+        tol = np.maximum(np.ldexp(1.0, np.frexp(m)[1] - 8), 1e-5)
+        assert (np.abs(a - r) <= tol).all()
+        assert np.mean(a != r) <= 5e-3
+
+
+def test_conv3x3_wrapper_checks_its_inputs(cuda):
+    x = torch.rand((1, 8, 8, 16), device=cuda, dtype=torch.bfloat16)
+    wt = torch.rand((32, 16, 3, 3), device=cuda)
+    b = torch.rand((32,), device=cuda)
+    for bad in (
+        (x.half(), wt, b),                          # dtype
+        (x.permute(0, 2, 1, 3), wt, b),             # not contiguous NHWC
+        (x, wt[:, :8], b),                          # Ci mismatch
+        (x, wt[..., :2], b),                        # not 3x3
+        (x, wt.cpu(), b),                           # device
+        (x, wt, b[:16]),                            # bias shape
+    ):
+        with pytest.raises(ValueError):
+            conv3x3_lane(*bad)

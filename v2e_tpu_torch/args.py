@@ -3,8 +3,8 @@ names, groups and defaults, so conversion recipes run unchanged.
 
 `check_ported` turns away, with a message that names the ROADMAP item that
 will port it, every flag whose path the port does not have yet; none is
-ignored.  `log_layout_flags` says where a TPU layout flag (--unet_conv,
---warp_precision) runs the port's one form.
+ignored.  `log_layout_flags` says what the port runs for the TPU layout
+flags (--unet_conv, --warp_precision).
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import argparse
 import logging
 import os
 from typing import Optional, Tuple
+
+from v2e_tpu_torch.models.unet import DENSE_LAYOUTS, fold_levels
 
 logger = logging.getLogger(__name__)
 
@@ -166,11 +168,15 @@ def v2e_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                                       "packed", "fold", "fold45",
                                       "packedz", "packedup", "blocked",
                                       "dense"],
-                             help="UNet conv execution form of the JAX "
-                                  "package.  All but packedz are TPU layouts "
-                                  "of the same dense function and run the "
-                                  "port's dense UNet; packedz needs the lane "
-                                  "conv kernel, which is not ported yet")
+                             help="UNet conv form (the same function in "
+                                  "every form): packedz runs the k=3 up-tail "
+                                  "layers with 32-64 output channels through "
+                                  "the K5 conv kernel; fold, fold45, "
+                                  "packedfold and packedfold45 fold each "
+                                  "bilinear x2 + conv into one half-res conv "
+                                  "(on all up levels, or on up4 and up5); "
+                                  "packed, packedup and blocked are TPU "
+                                  "layouts that run dense; auto runs dense")
     slomo_group.add_argument("--slomo_use_saved", action="store_true",
                              help="cache the interpolated frame stream and "
                                   "reuse it on later runs with the same "
@@ -351,8 +357,6 @@ _NOT_PORTED = (
     ("--devices", lambda a: a.devices != 1, _PARALLEL),
     ("--parallel_mode", lambda a: a.parallel_mode != "pixel", _PARALLEL),
     ("--segment_warmup", lambda a: a.segment_warmup != 8, _PARALLEL),
-    ("--unet_conv packedz", lambda a: a.unet_conv == "packedz",
-     "TPU kernels, K5 conv3x3_lane"),
 )
 
 
@@ -367,13 +371,22 @@ def check_ported(args) -> Optional[str]:
 
 
 def log_layout_flags(args) -> None:
-    """Say once that the TPU-only forms of --unet_conv and --warp_precision
-    compute the same function on the port: every --unet_conv form but
-    packedz (turned away by check_ported) runs the dense UNet, and the warps
-    compute in float32 for every --warp_precision."""
-    if args.unet_conv not in ("auto", "dense"):
-        logger.info(f"--unet_conv {args.unet_conv} is a TPU layout of the dense UNet; "
+    """Say once what the port runs for --unet_conv and --warp_precision:
+    packedz sends the up-tail layers to K5, the fold forms fold the up
+    levels' upsample into their conv, packed, packedup and blocked are TPU
+    layouts that run the dense UNet, and the warps compute in float32 for
+    every --warp_precision."""
+    form = args.unet_conv
+    if form in DENSE_LAYOUTS:
+        logger.info(f"--unet_conv {form} is a TPU layout of the dense UNet; "
                     "the port runs the dense form")
+    elif form == "packedz":
+        logger.info("--unet_conv packedz: the k=3 up-tail layers with 32-64 output "
+                    "channels run through the K5 conv kernel, the others dense")
+    elif "fold" in form:
+        levels = ", ".join(f"up{i}" for i in sorted(fold_levels(form)))
+        logger.info(f"--unet_conv {form}: the upsample and conv1 of {levels} run "
+                    "as one folded half-res conv, the others dense")
     if args.warp_precision != "1pass":
         logger.info(f"--warp_precision {args.warp_precision}: the port's warps "
                     "compute in float32 for every setting")

@@ -48,18 +48,19 @@ def fused_chunk(
 ):
     """frames u8/f32[B+1,H,W] + rel_times f32[B*U] -> (state, outs, packed).
 
-    statics = (H, W, U, max_group, warp_max_disp, quantize).  `draws`
+    statics = (H, W, U, max_group, warp_max_disp, quantize, conv_impl),
+    conv_impl the UNets' conv form (models/unet.py).  `draws`
     overrides the emulator's random draws (tests); by default they come
     from `generator`.  packed["scalars"] ends with the chunk's max flow
     magnitude (float32 bits).
     """
-    H, W, U, max_group, warp_max_disp, quantize = statics
+    H, W, U, max_group, warp_max_disp, quantize, conv_impl = statics
     x = preprocess_frames(frames, snap32(H), snap32(W))
     I0, I1 = x[:-1], x[1:]
-    flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1))
+    flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
     interp = interpolate_pairs(
         flow_net, interp_net, I0, I1, U, max_group, warp_max_disp,
-        flow_out=flow_out,
+        flow_out=flow_out, conv_impl=conv_impl,
     )
     dvs = postprocess_frames(interp, H, W, quantize)
     if draws is None:
@@ -148,7 +149,7 @@ class FusedConverter:
         em, slomo = self.emulator, self.slomo
         H, W = em.output_height, em.output_width
         disp = self._disp if (slomo.adaptive_disp and self._disp) else slomo.warp_max_disp
-        statics = (H, W, U, slomo.max_group, disp, True)
+        statics = (H, W, U, slomo.max_group, disp, True, slomo.conv_impl)
         self.n_fused += 1
         return em.submit_batch_fused(
             fused_chunk, statics, slomo.flow_net, slomo.interp_net,

@@ -93,7 +93,9 @@ def _to_unet(params: NpParams, io: Tuple[int, int], device, dtype) -> UNet:
             np.asarray(params[name]["b"], dtype=np.float32).copy()
         )
     net.load_state_dict(state)
-    return net.to(device=device, dtype=dtype).eval().requires_grad_(False)
+    net = net.to(device=device)
+    net.keep_float32_terms(dtype)
+    return net.to(dtype=dtype).eval().requires_grad_(False)
 
 
 def from_jax_params(

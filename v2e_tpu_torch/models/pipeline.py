@@ -67,6 +67,7 @@ def run_interpolated_pipeline(
         batch_size=args.batch_size,
         allow_random=args.allow_random_slomo,
         device=device,
+        conv_impl=args.unet_conv,
     )
 
     orig_writer = slomo_writer = None

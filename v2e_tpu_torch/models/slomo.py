@@ -36,7 +36,7 @@ from v2e_tpu_torch.models.convert_ckpt import (
     load_slomo_params,
 )
 from v2e_tpu_torch.models.resize import resize
-from v2e_tpu_torch.models.unet import UNet, unet_apply
+from v2e_tpu_torch.models.unet import UNet, fold_levels, unet_apply
 
 logger = logging.getLogger(__name__)
 
@@ -99,15 +99,17 @@ def interpolate_pairs(
     max_group: int = 96,
     warp_max_disp: int = 32,
     flow_out: Optional[torch.Tensor] = None,
+    conv_impl: str = "dense",
 ) -> torch.Tensor:
     """Interpolate U frames between each pair.
 
     I0, I1: [B,1,h,w] normalized (0-1 minus MEAN) frame pairs.  Returns
-    [B, U, 1, h, w] normalized frames at t = (i + 0.5) / U.
+    [B, U, 1, h, w] normalized frames at t = (i + 0.5) / U.  Both UNets run
+    in the conv form `conv_impl` (models/unet.py).
     """
     U = upsampling_factor
     if flow_out is None:
-        flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1))
+        flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
     B = I0.shape[0]
     P0, P1 = I0[:, 0], I1[:, 0]
     u01, v01 = flow_out[:, 0], flow_out[:, 1]
@@ -148,7 +150,7 @@ def interpolate_pairs(
             [P0g, P1g, u01g, v01g, u10g, v10g, ut1, vt1, ut0, vt0, g1, g0], dim=1
         )
         dtype = next(interp_net.parameters()).dtype
-        intrp = interp_net(stack.to(dtype)).to(torch.float32)
+        intrp = interp_net(stack.to(dtype), conv_impl).to(torch.float32)
         ut0f = intrp[:, 0] + ut0
         vt0f = intrp[:, 1] + vt0
         ut1f = intrp[:, 2] + ut1
@@ -195,6 +197,10 @@ class SuperSloMo:
     original SuperSloMo).  A `model` path that does not exist raises
     FileNotFoundError unless `allow_random` is set; then random weights are
     used with a warning.
+
+    `conv_impl` is the UNets' conv form (models/unet.py, the CLI's
+    --unet_conv); "auto" runs dense, as the JAX package's auto does off its
+    TPU.  No faster default is chosen without a benchmark cell.
     """
 
     DISP_BUCKETS = (8, 16, 32)
@@ -214,6 +220,7 @@ class SuperSloMo:
         device: Optional[str] = None,
         seed: int = 0,
         base: int = 32,
+        conv_impl: str = "auto",
     ):
         if not auto_upsample and (
             not isinstance(upsampling_factor, int) or upsampling_factor < 2
@@ -223,6 +230,8 @@ class SuperSloMo:
                 "when auto_upsample=False"
             )
         self.device = resolve_device(device)
+        self.conv_impl = "dense" if conv_impl == "auto" else conv_impl
+        fold_levels(self.conv_impl)  # raises on an unknown form
         self.auto_upsample = auto_upsample
         self.upsampling_factor = upsampling_factor
         self.batch_size = batch_size
@@ -303,7 +312,7 @@ class SuperSloMo:
         frames = torch.as_tensor(frames).to(self.device)
         x = preprocess_frames(frames, snap32(H), snap32(W))
         I0, I1 = x[:-1], x[1:]
-        flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1))
+        flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1), self.conv_impl)
         return I0, I1, flow_out
 
     def interpolate_batch(
@@ -336,6 +345,6 @@ class SuperSloMo:
             interp = interpolate_pairs(
                 self.flow_net, self.interp_net, I0[s: s + pair_slice],
                 I1[s: s + pair_slice], U, self.max_group, max_disp,
-                flow_out=flow_out[s: s + pair_slice],
+                flow_out=flow_out[s: s + pair_slice], conv_impl=self.conv_impl,
             )
             yield postprocess_frames(interp, H, W, quantize), s

@@ -1,5 +1,4 @@
-"""SuperSloMo UNet as an `nn.Module` (port of v2e_tpu/models/unet.py, dense
-form).
+"""SuperSloMo UNet as an `nn.Module` (port of v2e_tpu/models/unet.py).
 
   conv1 7x7 (in->b), conv2 7x7 (b->b)                        -> skip s1
   down{1..5}: avgpool2 + conv(k) + conv(k), k = 5,3,3,3,3     (b -> 16b)
@@ -8,17 +7,36 @@ form).
 
 with b = `base` (32 = the original SuperSloMo).  Submodule names follow the
 original torch model, so its state-dict keys ('down1.conv1.weight', ...)
-load unchanged.  The JAX package's packed, blocked and fold forms are TPU
-layouts of this same function and are not ported; the convolutions are
-F.conv2d, as they were plain XLA convolutions there.
+load unchanged.
+
+Conv forms (`conv_impl`, the CLI's --unet_conv), as in the JAX package:
+* dense: every conv is F.conv2d + LeakyReLU, in the module's dtype.
+* packedz: the k=3 layers with 32 <= Co <= 64 of the up path and conv3 run
+  through K5 (ops/kernels/conv3.py), whose bias and activation are applied
+  in float32 and rounded once; every other layer is dense.  At base 32
+  that is up4 and up5, at base 8 up2 and up3.
+* fold, fold45, packedfold, packedfold45: each bilinear x2 upsample and
+  the up level's conv1 after it become one half-resolution conv with the
+  four output phases on the channel axis (`upconv_fold`), on every up
+  level or (suffix 45) on up4 and up5; every other layer is dense.
+* packed, packedup, blocked: TPU layouts of the dense function (column
+  packing that fills the TPU's 128 lanes); they run dense.
+The fold is plain F.conv2d, as the JAX package left it to XLA.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import FrozenSet, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from v2e_tpu_torch.ops.kernels.conv3 import LANE3_MAX_CO, LANE3_MIN_CO, conv3x3_lane
+
+CONV_FORMS = ("dense", "packedz", "fold", "fold45", "packedfold", "packedfold45",
+              "packed", "packedup", "blocked")
+# the forms that are TPU layouts of the dense function
+DENSE_LAYOUTS = ("packed", "packedup", "blocked")
 
 
 def unet_conv_specs(
@@ -41,6 +59,103 @@ def unet_conv_specs(
     return specs
 
 
+def fold_levels(conv_impl: str) -> FrozenSet[int]:
+    """The up levels a form folds: "fold"/"packedfold" all five, a digit
+    suffix ("fold45") those levels, any other form none."""
+    if conv_impl not in CONV_FORMS:
+        raise ValueError(f"unknown conv form {conv_impl!r}; one of {CONV_FORMS}")
+    for prefix in ("packedfold", "fold"):
+        if conv_impl.startswith(prefix):
+            suffix = conv_impl[len(prefix):]
+            return frozenset(int(c) for c in suffix) if suffix else frozenset(range(1, 6))
+    return frozenset()
+
+
+def lane3_eligible(conv: nn.Conv2d) -> bool:
+    """Whether the packedz form sends this layer to K5: k = 3 and
+    32 <= Co <= 64 (v2e_tpu/models/unet.py:_conv_block3_lane)."""
+    return conv.kernel_size == (3, 3) and LANE3_MIN_CO <= conv.out_channels <= LANE3_MAX_CO
+
+
+# _UPFOLD_A[r][i][d]: coefficient of half-res tap x[h+i-1] contributed by
+# the dense kernel's tap d at full-res row parity r, from
+#   up[2h] = 0.25 x[h-1] + 0.75 x[h],  up[2h+1] = 0.75 x[h] + 0.25 x[h+1]
+_UPFOLD_A = (
+    ((0.75, 0.25, 0.0), (0.25, 0.75, 0.75), (0.0, 0.0, 0.25)),  # r = 0
+    ((0.25, 0.0, 0.0), (0.75, 0.75, 0.25), (0.0, 0.25, 0.75)),  # r = 1
+)
+
+
+def upfold_kernel(w: torch.Tensor) -> torch.Tensor:
+    """OIHW [Co,Ci,3,3] -> the folded half-res OIHW kernel [4*Co,Ci,3,3] in
+    float32; output channels in (r, c, co) order, (r, c) the full-res row
+    and column parity."""
+    a = torch.tensor(_UPFOLD_A, dtype=torch.float32, device=w.device)
+    wf = torch.einsum("rad,sbe,oide->rsoiab", a, a, w.to(torch.float32))
+    return wf.reshape(4 * w.shape[0], w.shape[1], 3, 3)
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def _upsample2_along(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Bilinear x2 with half-pixel centers and edge clamping along one axis
+    (F.interpolate's weights: up[2i] = 0.25 x[i-1] + 0.75 x[i], up[2i+1] =
+    0.75 x[i] + 0.25 x[i+1]), summed in float32 and rounded once.  For the
+    fold's one-pixel border lines: F.interpolate's CUDA kernel runs a thread
+    per output pixel that loops over N*C, which on a line of a few hundred
+    pixels takes milliseconds."""
+    xf = x.to(torch.float32)
+    n = x.shape[dim]
+    prev = torch.cat([xf.narrow(dim, 0, 1), xf.narrow(dim, 0, n - 1)], dim)
+    nxt = torch.cat([xf.narrow(dim, 1, n - 1), xf.narrow(dim, n - 1, 1)], dim)
+    up = torch.stack([0.25 * prev + 0.75 * xf, 0.75 * xf + 0.25 * nxt], dim + 1)
+    return up.flatten(dim, dim + 1).to(x.dtype)
+
+
+def upconv_fold(x: torch.Tensor, conv: nn.Conv2d, wf: torch.Tensor) -> torch.Tensor:
+    """LeakyReLU(conv(bilinear x2 of x)) as one half-res conv (k = 3).
+
+    x: [N,Ci,Hh,Wh] half-res; wf: `upfold_kernel(conv.weight)` in x's
+    dtype.  Returns [N,Co,2Hh,2Wh].  The bilinear clamps at the half-res
+    border, which edge padding of x reproduces (its tap weights sum to 1);
+    the conv zero-pads beyond the full-res image.  So the folded conv over
+    the edge-padded input over-counts exactly the conv taps that fall
+    outside the image, in a one-pixel output ring; those are subtracted
+    with 1-D convs along the border rows and columns, and the corner taps,
+    subtracted twice, added back (v2e_tpu/models/unet.py:_upconv_fold_block).
+    """
+    w, b = conv.weight, conv.bias
+    n, ci, hh, wh = x.shape
+    co = w.shape[0]
+    z = F.conv2d(F.pad(x, (1, 1, 1, 1), mode="replicate"), wf)
+    z = z.reshape(n, 2, 2, co, hh, wh)  # [N, r, c, Co, Hh, Wh]
+
+    def row_corr(row, wrow):
+        # the out-of-range full-res row equals the border row upsampled in
+        # W; its own out-of-range columns equal its corner pixels
+        up = _upsample2_along(row, 3)
+        c = F.conv2d(F.pad(up, (1, 1, 0, 0), mode="replicate"), wrow[:, :, None, :])
+        return c.reshape(n, co, wh, 2).permute(0, 3, 1, 2)  # [N, c, Co, Wh]
+
+    def col_corr(col, wcol):
+        up = _upsample2_along(col, 2)
+        c = F.conv2d(F.pad(up, (0, 0, 1, 1), mode="replicate"), wcol[:, :, :, None])
+        return c.reshape(n, co, hh, 2).permute(0, 3, 1, 2)  # [N, r, Co, Hh]
+
+    # full-res row 0 is parity r=0 at h=0; row 2Hh-1 is r=1 at h=Hh-1
+    z[:, 0, :, :, 0, :] -= row_corr(x[:, :, :1], w[:, :, 0, :])
+    z[:, 1, :, :, -1, :] -= row_corr(x[:, :, -1:], w[:, :, 2, :])
+    z[:, :, 0, :, :, 0] -= col_corr(x[:, :, :, :1], w[:, :, :, 0])
+    z[:, :, 1, :, :, -1] -= col_corr(x[:, :, :, -1:], w[:, :, :, 2])
+    for hi, wi, r, c, dy, dx in ((0, 0, 0, 0, 0, 0), (0, -1, 0, 1, 0, 2),
+                                 (-1, 0, 1, 0, 2, 0), (-1, -1, 1, 1, 2, 2)):
+        z[:, r, c, :, hi, wi] += x[:, :, hi, wi] @ w[:, :, dy, dx].t()
+    z = F.leaky_relu(z + b[None, None, None, :, None, None], 0.1)
+    return z.permute(0, 3, 4, 1, 5, 2).reshape(n, co, 2 * hh, 2 * wh)
+
+
 class UNet(nn.Module):
     """The SuperSloMo UNet on NCHW tensors (H, W multiples of 32)."""
 
@@ -55,13 +170,40 @@ class UNet(nn.Module):
                     parent.add_module(p, nn.Module())
                 parent = getattr(parent, p)
             parent.add_module(leaf, nn.Conv2d(ci, co, k, padding=(k - 1) // 2))
+        self.keep_float32_terms(torch.float32)
+
+    def keep_float32_terms(self, dtype: torch.dtype) -> None:
+        """Record, from the current weights, what K5 and the fold take from
+        the float32 masters: each conv's float32 bias (`bias_f32`), and each
+        up level's folded conv1 kernel, folded in float32 and cast once to
+        `dtype` (`fold_weight`), as the JAX package does with its float32
+        parameters.  Call before casting the module to `dtype`
+        (convert_ckpt does)."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv2d):
+                m.bias_f32 = m.bias.detach().to(torch.float32).clone()
+        for i in range(1, 6):
+            blk = getattr(self, f"up{i}")
+            blk.fold_weight = upfold_kernel(blk.conv1.weight.detach()).to(dtype)
 
     @staticmethod
     def _act(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(conv(x), 0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @classmethod
+    def _lane(cls, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """K5 for the layers `lane3_eligible` names, dense for the others.
+        K5 takes NHWC: a channels_last tensor's permute is that with no
+        copy; any other input is copied once."""
+        if not lane3_eligible(conv):
+            return cls._act(conv, x)
+        xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        return conv3x3_lane(xh, conv.weight, conv.bias_f32, 0.1).permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
+        fold = fold_levels(conv_impl)
         a = self._act
+        cb3 = self._lane if conv_impl == "packedz" else a
         x = a(self.conv1, x)
         s1 = a(self.conv2, x)
         skips = [s1]
@@ -75,19 +217,22 @@ class UNet(nn.Module):
                 skips.append(x)
         for i in range(1, 6):
             blk = getattr(self, f"up{i}")
-            x = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
-            x = a(blk.conv1, x)
-            x = a(blk.conv2, torch.cat([x, skips[5 - i]], dim=1))
-        return a(self.conv3, x)
+            if i in fold:
+                x = upconv_fold(x, blk.conv1, blk.fold_weight)
+            else:
+                x = cb3(blk.conv1, _upsample2(x))
+            x = cb3(blk.conv2, torch.cat([x, skips[5 - i]], dim=1))
+        return cb3(self.conv3, x)
 
 
-def unet_apply(net: UNet, x: torch.Tensor) -> torch.Tensor:
+def unet_apply(net: UNet, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
     """Forward pass on NCHW input [N, in_ch, H, W], computed in the
-    module's dtype (e.g. bfloat16) and returned in x's dtype."""
+    module's dtype (e.g. bfloat16) in the form `conv_impl`, and returned in
+    x's dtype."""
     dtype = next(net.parameters()).dtype
-    return net(x.to(dtype)).to(x.dtype)
+    return net(x.to(dtype), conv_impl).to(x.dtype)
 
 
-def unet_apply_io_nhwc(net: UNet, x: torch.Tensor) -> torch.Tensor:
+def unet_apply_io_nhwc(net: UNet, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
     """`unet_apply` on NHWC input [N, H, W, in_ch], returning NHWC."""
-    return unet_apply(net, x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    return unet_apply(net, x.permute(0, 3, 1, 2), conv_impl).permute(0, 2, 3, 1)
