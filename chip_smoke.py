@@ -10,8 +10,10 @@ Phases, each printed on its own line with its seconds:
      path's shape and frame interval (160 frames of 260x346 at 1/300 s,
      leak and shot noise on, R=0.5 ms), with a high-contrast moving bar so
      that the filter is active (R > dt/K) in every frame after the first:
-     counts, i0 and K equal, base and spike-time memory within 1e-6, and
-     the filter seen to act (i0 > 0 somewhere, spike times updated);
+     counts, i0 and K equal, base and spike-time memory within 1e-6, the
+     filter seen to act (i0 > 0 somewhere, spike times updated) and one
+     launch per call, with its cooperative grid printed; the same check and
+     timing again after the CLI runs, at the shape run A launched K1 with;
   3. K3 (bilinear warp) against its plain version at 160 planes of 256x320
      with flows up to +-32 px: max abs difference <= 1e-5; F.grid_sample is
      timed beside it as a yardstick;
@@ -50,8 +52,11 @@ Phases, each printed on its own line with its seconds:
      (cuDNN's TF32 off) at the up4 and up5 shapes run C launched it with:
      every element within one bf16 ulp (1e-5 absolute near zero, where the
      two float32 sums' own rounding exceeds an ulp), at most 0.5 % of them
-     differing; cuDNN's conv + bias and leaky_relu in bf16
-     channels_last is timed beside it;
+     differing; the weights packed once, as the UNet caches them, and
+     the cached and freshly packed weights giving equal outputs; cuDNN's
+     conv + bias and leaky_relu in bf16 channels_last is timed beside it,
+     and each shape's share of its bound and ratio to cuDNN printed (a
+     slow kernel is printed, not failed);
  10. the interp UNet's forward at the fused chunk's shape (80 x 12 channels
      of 256x320, bf16, base 32) in the conv forms dense, packedz, fold45,
      packedfold45 and fold: time and max abs difference from dense, and
@@ -118,20 +123,16 @@ def time_ms(torch, fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_k1(torch, dev):
-    from v2e_tpu_torch.ops.kernels.emulator_scan import (
-        refractory_scan, refractory_scan_plain,
-    )
-
-    F, R = U * B, 0.0005
-    g = torch.Generator(device=dev).manual_seed(1)
+def refr_inputs(torch, dev, F, dt, R, seed=1):
+    """K1's test chunk: F frames of H x W at frame interval dt, leak and shot
+    noise on, with a drifting texture and a bar 2.5 log units bright moving
+    3 px per frame (its edges give K of about 12-33, so R > dt/K: the filter
+    acts), plus per-frame noise."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
     yy = torch.arange(H, device=dev, dtype=f32)[:, None]
     xx = torch.arange(W, device=dev, dtype=f32)[None, :]
     tt = torch.arange(F, device=dev, dtype=f32)[:, None, None]
-    # drifting log-intensity texture, a bar 2.5 log units bright moving 3 px
-    # per frame (its edges give K of about 12-33, so R > dt/K: the filter
-    # acts), plus per-frame noise
     bar = (torch.remainder(xx + 0.5 * yy - 3.0 * tt, 96.0) < 10.0).to(f32)
     lp = (4.6 + 0.6 * torch.sin((xx + 0.2 * tt) / 17.0) * torch.cos(yy / 13.0)
           + 2.5 * bar + 0.02 * torch.randn((F, H, W), generator=g, device=dev))
@@ -139,51 +140,92 @@ def phase_k1(torch, dev):
     neg = torch.clamp(0.2 + 0.03 * torch.randn((H, W), generator=g, device=dev), min=0.01)
     base = lp[0] + 0.05 * torch.randn((H, W), generator=g, device=dev)
     mem = torch.full((H, W), -R, device=dev)
-    dts = torch.full((F,), 1.0 / (SRC_FPS * U), device=dev)
+    dts = torch.full((F,), dt, device=dev)
     t_prevs = torch.cumsum(dts, 0) - dts
     leak = 1e-3 * torch.rand((F, H, W), generator=g, device=dev)
     shot = (torch.rand((F, H, W), generator=g, device=dev) < 1e-3).to(torch.uint8)
-    args = (lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R)
+    return (lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R)
 
+
+def check_k1(torch, F, dt, R, tag, plain_reps=2):
+    """K1 against its plain version on refr_inputs: counts, i0 and K equal,
+    base and spike-time memory within 1e-6, the filter seen to act (R >
+    dt/K in every frame after the first, i0 > 0 somewhere, spike times
+    updated), one launch; then both timed.  Returns the numbers."""
+    from v2e_tpu_torch.ops.kernels.emulator_scan import (
+        refractory_scan, refractory_scan_plain,
+    )
+
+    dev = torch.device("cuda")
+    args = refr_inputs(torch, dev, F, dt, R)
+    mem = args[6]
     before = refractory_scan.launches
     got = refractory_scan(*args)
+    per_call = refractory_scan.launches - before
+    grid = refractory_scan.last_call[1]
     want = refractory_scan_plain(*args)
     torch.cuda.synchronize()
     names = ("base", "mem", "counts", "i0", "K")
     for name, a, b in zip(names[2:], got[2:], want[2:]):
         n_bad = int((a != b).sum())
         if n_bad:
-            raise AssertionError(f"K1 {name}: {n_bad} entries differ from the plain version")
+            raise AssertionError(f"K1 {tag} {name}: {n_bad} entries differ from the plain version")
     err = max(float((got[i] - want[i]).abs().max()) for i in (0, 1))
     if err > 1e-6:
-        raise AssertionError(f"K1 base/mem differ by {err} > 1e-6")
-    n_active = int((got[4].to(f32) * R > dts).sum())
+        raise AssertionError(f"K1 {tag} base/mem differ by {err} > 1e-6")
+    n_active = int((got[4].to(torch.float32) * R > args[7]).sum())
     i0_max = int(got[3].max())
     mem_moved = int((got[1] != mem).sum())
     if n_active < F - 1 or i0_max <= 0 or mem_moved == 0:
         raise AssertionError(
-            f"K1 test data leaves the refractory filter idle: active in {n_active}/{F} "
+            f"K1 {tag} test data leaves the refractory filter idle: active in {n_active}/{F} "
             f"frames, i0 max {i0_max}, {mem_moved} spike times updated")
+    if per_call != 1:
+        raise AssertionError(f"K1 {tag}: {per_call} launches per call, not 1")
     ms = time_ms(torch, lambda: refractory_scan(*args), reps=10)
-    plain_ms = time_ms(torch, lambda: refractory_scan_plain(*args), reps=2)
+    plain_ms = time_ms(torch, lambda: refractory_scan_plain(*args), reps=plain_reps,
+                       warm=int(plain_reps > 1))
     refractory_scan.launches = before  # comparison launches do not count
     npix = H * W
     nbytes = F * npix * (4 + 4 + 1 + 2 + 2) + npix * (4 * 4 + 2 * 4) + F * 12
     b_ms, b_by = bound(nbytes, F * npix * 40)
-    events = int(got[2].abs().sum())
-    log(f"[k1] refractory scan F={F} {H}x{W}: counts/i0/K equal, base/mem max abs "
+    blocks, threads, regpix = grid
+    log(f"[k1] {tag}: refractory scan F={F} {H}x{W}: counts/i0/K equal, base/mem max abs "
         f"err {err:.3g}; filter active in {n_active}/{F} frames (K {int(got[4].min())}"
         f"-{int(got[4].max())}), i0 max {i0_max} at {int((got[3] > 0).sum())} "
-        f"pixel-frames, {mem_moved}/{H * W} spike times updated; kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {events} events in "
-        f"the test chunk")
+        f"pixel-frames, {mem_moved}/{npix} spike times updated; {per_call} launch per call, "
+        f"cooperative grid {blocks} x {threads} threads "
+        f"({'state in registers, up to %d px/thread' % regpix if regpix else 'state in global memory'}); "
+        f"kernel {ms:.3f} ms ({ms / F * 1e3:.2f} us/frame), plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}, {b_ms / ms:.1%} of it); {int(got[2].abs().sum())} events "
+        f"in the test chunk")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "grid": [blocks, threads, regpix], "frames": F}
+
+
+def phase_k1(torch, dev):
+    """K1 at the fused path's shape and frame interval (160 frames of
+    260x346 at 1/300 s, R = 0.5 ms)."""
+    r = check_k1(torch, U * B, 1.0 / (SRC_FPS * U), 0.0005, f"F={U * B} fused chunk")
+    r.pop("frames")
     return {
         "name": "refractory_scan", "route": "cuda",
         "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
         "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:247",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_ms": None, **r,
     }
+
+
+def phase_k1_run_a(torch, shape, u, launches):
+    """K1 at the shape and frame interval the CLI's run A launched it with
+    (the CLI default R = 0.5 ms)."""
+    F, h, w = shape
+    if (h, w) != (H, W):
+        raise AssertionError(f"run A launched K1 at {shape}, not at {H}x{W}")
+    # one plain run (about a second at this shape) besides the check's
+    r = check_k1(torch, F, 1.0 / (SRC_FPS * u), 0.0005, f"run A shape (U={u})", plain_reps=1)
+    log(f"[k1] run A: {launches} launches (one per chunk)")
+    return r
 
 
 def phase_k3(torch, dev):
@@ -433,6 +475,9 @@ def phase_cli(torch, np, tmp, counters):
         wall = time.perf_counter() - t
         launches[name] = {k: fn.launches for k, fn in counters.items()}
         shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
+        if name == "A":
+            shapes[name]["refractory_scan"] = counters["refractory_scan"].last_call[0]
+            shapes[name]["U"] = stats.upsampling[-1]
         if name == "C":
             shapes[name]["conv3x3_lane"] = dict(conv3x3_lane.shapes)
         walls[name] = wall
@@ -532,7 +577,9 @@ def phase_k5(torch, dev, shapes, launches):
     Co), the largest batch: the interp UNet's), bf16 as the CLI runs it."""
     import torch.nn.functional as Fn
 
-    from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane, conv3x3_lane_plain
+    from v2e_tpu_torch.ops.kernels.conv3 import (
+        conv3x3_lane, conv3x3_lane_plain, pack_conv3_weights,
+    )
 
     picked = {}
     for (xs, co), _ in shapes.items():
@@ -550,7 +597,11 @@ def phase_k5(torch, dev, shapes, launches):
         x = torch.randn((n, h, w, ci), generator=g, device=dev).to(torch.bfloat16)
         wt = torch.randn((co, ci, 3, 3), generator=g, device=dev) / (9 * ci) ** 0.5
         b = 0.1 * torch.randn((co,), generator=g, device=dev)
-        got = conv3x3_lane(x, wt, b)
+        # the weights packed once, as UNet.keep_float32_terms caches them
+        packed = pack_conv3_weights(wt, torch.bfloat16)
+        got = conv3x3_lane(x, wt, b, 0.1, packed=packed)
+        if not torch.equal(got, conv3x3_lane(x, wt, b)):
+            raise AssertionError("K5 with cached packed weights differs from fresh packing")
         want = conv3x3_lane_plain(x, wt, b)
         torch.cuda.synchronize()
         a, r = got.double(), want.double()
@@ -571,7 +622,7 @@ def phase_k5(torch, dev, shapes, launches):
         def lib():
             return Fn.leaky_relu(Fn.conv2d(xc, wc, bb, padding=1), 0.1)
 
-        ms = time_ms(torch, lambda: conv3x3_lane(x, wt, b), reps=10)
+        ms = time_ms(torch, lambda: conv3x3_lane(x, wt, b, 0.1, packed=packed), reps=10)
         plain_ms = time_ms(torch, lambda: conv3x3_lane_plain(x, wt, b), reps=3)
         library_ms = time_ms(torch, lib, reps=10)
         nbytes = 2 * n * h * w * (ci + co) + 2 * 9 * ci * co + 4 * co
@@ -581,7 +632,8 @@ def phase_k5(torch, dev, shapes, launches):
             f"{share:.4%} of elements differ (all within one bf16 ulp); kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, cuDNN conv+leaky_relu {library_ms:.3f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP), "
-            f"{flops / ms / 1e9:.1f} TFLOP/s")
+            f"{flops / ms / 1e9:.1f} TFLOP/s; {b_ms / ms:.1%} of the bound, "
+            f"{ms / library_ms:.3f}x cuDNN's time")
         rows.append(f"{n}x{h}x{w}x{ci}->{co}")
         for k, v in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
                      ("bytes", nbytes), ("flops", flops)):
@@ -591,7 +643,8 @@ def phase_k5(torch, dev, shapes, launches):
     b_ms, b_by = bound(tot["bytes"], tot["flops"], PEAK_BF16_OPS_S)
     log(f"[k5] {launches} launches in run C; both shapes together (one call each): "
         f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
-        f"{tot['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{tot['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / tot['ms']:.1%} "
+        f"of the bound, {tot['ms'] / tot['library_ms']:.3f}x cuDNN's time")
     return {
         "name": "conv3x3_lane", "route": "cuda", "launches": launches,
         "source": "v2e_tpu_torch/csrc/conv3x3.cu",
@@ -853,6 +906,11 @@ def main() -> int:
         t = time.perf_counter()
         phase_cli_small(torch, np, tmp)
         log(f"[cli-small] {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    k1["run_a"] = phase_k1_run_a(torch, cli_shapes["A"]["refractory_scan"], cli_shapes["A"]["U"],
+                                 cli_launches["A"]["refractory_scan"])
+    log(f"[k1] run A shape {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     k2 = phase_k2(torch, dev, cli_shapes["B"]["scan"], cli_launches["B"]["scan"])

@@ -12,11 +12,14 @@ to 4e-6 at values near 1e-4), with at most 0.5 % of the elements differing
 (measured 0.06 % at up4), against the plain version run with cuDNN's TF32
 off.
 """
-import numpy as np
 import pytest
 import torch
 
-from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane, conv3x3_lane_plain
+from v2e_tpu_torch.ops.kernels.conv3 import (
+    conv3x3_lane,
+    conv3x3_lane_plain,
+    pack_conv3_weights,
+)
 from v2e_tpu_torch.ops.kernels.emulator_scan import (
     refractory_scan,
     refractory_scan_plain,
@@ -36,10 +39,8 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("R", [0.0, 0.0005])
-def test_refractory_scan_kernel_matches_plain(cuda, R):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    F, H, W = 12, 37, 301
+def refractory_inputs(cuda, F, H, W, R, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
     lp = 4.6 + 0.4 * torch.randn((F, H, W), generator=g, device=cuda)
     pos = 0.2 + 0.03 * torch.rand((H, W), generator=g, device=cuda)
     neg = 0.2 + 0.03 * torch.rand((H, W), generator=g, device=cuda)
@@ -49,15 +50,34 @@ def test_refractory_scan_kernel_matches_plain(cuda, R):
     t_prevs = torch.cumsum(dts, 0) - dts
     leak = 1e-3 * torch.rand((F, H, W), generator=g, device=cuda)
     shot = (torch.rand((F, H, W), generator=g, device=cuda) < 0.01).to(torch.uint8)
-    args = (lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R)
+    return (lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R)
+
+
+@pytest.mark.parametrize("F,H,W,R", [
+    (12, 37, 301, 0.0),
+    (12, 37, 301, 0.0005),
+    (1, 37, 301, 0.0005),     # one frame: one grid barrier
+    (4, 720, 1280, 0.0005),   # more pixels than resident threads: global state
+])
+def test_refractory_scan_kernel_matches_plain(cuda, F, H, W, R):
+    args = refractory_inputs(cuda, F, H, W, R)
     n0 = refractory_scan.launches
     got = refractory_scan(*args)
     want = refractory_scan_plain(*args)
-    assert refractory_scan.launches == n0 + 2 * F
+    assert refractory_scan.launches == n0 + 1
+    (blocks, threads, regpix) = refractory_scan.last_call[1]
+    assert refractory_scan.last_call[0] == (F, H, W)
+    assert regpix == 0 or H * W <= blocks * threads * regpix
+    if H * W > 500_000:  # more pixels than the grid has threads
+        assert H * W > blocks * threads
     for a, b in zip(got[2:], want[2:]):
         assert torch.equal(a, b)
     for a, b in zip(got[:2], want[:2]):
         assert float((a - b).abs().max()) <= 1e-6
+    if R > 0:  # the filter acts: R > dt/max(K, 1) in every frame, and cuts spikes
+        assert bool((torch.clamp(got[4], min=1).to(torch.float32) * R > args[7]).all())
+        if F > 1:
+            assert int(got[3].max()) > 0
 
 
 @pytest.mark.parametrize("noise", [True, False], ids=["leak_shot", "no_noise"])
@@ -145,14 +165,66 @@ def test_conv3x3_kernel_matches_plain(no_tf32, dtype, n, h, w, ci, co):
         assert conv3x3_lane.launches == n0 + 1
         want = conv3x3_lane_plain(x, wt, b, slope)
         assert got.dtype == dt and got.shape == want.shape == (n, h, w, co)
-        a, r = got.double().cpu().numpy(), want.double().cpu().numpy()
         if dtype == "float32":
-            assert np.abs(a - r).max() <= 1e-5
+            assert float((got.double() - want.double()).abs().max()) <= 1e-5
             continue
-        m = np.maximum(np.abs(a), np.abs(r))
-        tol = np.maximum(np.ldexp(1.0, np.frexp(m)[1] - 8), 1e-5)
-        assert (np.abs(a - r) <= tol).all()
-        assert np.mean(a != r) <= 5e-3
+        assert_bf16_close(got, want)
+
+
+def assert_bf16_close(got, want):
+    """Every element within one bf16 ulp (1e-5 absolute near zero), at most
+    0.5 % of them differing."""
+    a, r = got.double(), want.double()
+    m = torch.maximum(a.abs(), r.abs())
+    tol = torch.clamp(torch.ldexp(torch.ones_like(m), torch.frexp(m)[1] - 8), min=1e-5)
+    assert bool(((a - r).abs() <= tol).all())
+    assert float((a != r).double().mean()) <= 5e-3
+
+
+def conv_inputs(cuda, n, h, w, ci, co, seed=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((n, h, w, ci), generator=g, device=cuda).to(torch.bfloat16)
+    wt = torch.randn((co, ci, 3, 3), generator=g, device=cuda) / (9 * ci) ** 0.5
+    b = 0.1 * torch.randn((co,), generator=g, device=cuda)
+    return x, wt, b
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", [
+    (96, 128, 160, 128, 64),  # up4 at the interp UNet's batch
+    (96, 256, 320, 64, 32),   # up5 at the interp UNet's batch
+    (1, 16, 40, 64, 32),      # two work items: fewer than the SMs
+    (2, 12, 20, 256, 64),     # 295 KB of weights: streamed, not resident
+    (2, 8, 700, 128, 64),     # a wide row: 22 tiles across, the last one ragged
+])
+def test_conv3x3_bf16_kernel_at_more_shapes(no_tf32, n, h, w, ci, co):
+    x, wt, b = conv_inputs(no_tf32, n, h, w, ci, co)
+    n0 = conv3x3_lane.launches
+    got = conv3x3_lane(x, wt, b)
+    assert conv3x3_lane.launches == n0 + 1
+    assert_bf16_close(got, conv3x3_lane_plain(x, wt, b))
+
+
+def test_conv3x3_kernel_unaligned_input(no_tf32):
+    x, wt, b = conv_inputs(no_tf32, 2, 24, 40, 64, 32)
+    flat = torch.empty(x.numel() + 8, dtype=x.dtype, device=no_tf32)
+    xu = flat[1:1 + x.numel()].view(x.shape)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0 and xu.is_contiguous()
+    got = conv3x3_lane(xu, wt, b)
+    assert torch.equal(got, conv3x3_lane(x, wt, b))
+    assert_bf16_close(got, conv3x3_lane_plain(x, wt, b))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_conv3x3_packed_cache_matches_fresh_packing(no_tf32, dtype):
+    dt = getattr(torch, dtype)
+    x, wt, b = conv_inputs(no_tf32, 4, 32, 48, 128, 64)
+    x = x.to(dt)
+    packed = pack_conv3_weights(wt, dt)
+    assert torch.equal(conv3x3_lane(x, wt, b, 0.1, packed=packed), conv3x3_lane(x, wt, b))
+    with pytest.raises(ValueError):  # a layout for the other dtype
+        conv3x3_lane(x, wt, b, packed=pack_conv3_weights(
+            wt, torch.float32 if dtype == "bfloat16" else torch.bfloat16))
 
 
 def test_conv3x3_wrapper_checks_its_inputs(cuda):

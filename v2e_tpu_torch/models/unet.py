@@ -31,7 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from v2e_tpu_torch.ops.kernels.conv3 import LANE3_MAX_CO, LANE3_MIN_CO, conv3x3_lane
+from v2e_tpu_torch.ops.kernels.conv3 import (
+    LANE3_MAX_CO, LANE3_MIN_CO, conv3x3_lane, pack_conv3_weights,
+)
 
 CONV_FORMS = ("dense", "packedz", "fold", "fold45", "packedfold", "packedfold45",
               "packed", "packedup", "blocked")
@@ -172,16 +174,28 @@ class UNet(nn.Module):
             parent.add_module(leaf, nn.Conv2d(ci, co, k, padding=(k - 1) // 2))
         self.keep_float32_terms(torch.float32)
 
+    def lane_convs(self) -> Sequence[Tuple[str, nn.Conv2d]]:
+        """(name, conv) of the layers the packedz form sends to K5: the up
+        levels' convs and conv3 that `lane3_eligible` names."""
+        names = [f"up{i}.conv{j}" for i in range(1, 6) for j in (1, 2)] + ["conv3"]
+        convs = [(n, self.get_submodule(n)) for n in names]
+        return [(n, c) for n, c in convs if lane3_eligible(c)]
+
     def keep_float32_terms(self, dtype: torch.dtype) -> None:
         """Record, from the current weights, what K5 and the fold take from
-        the float32 masters: each conv's float32 bias (`bias_f32`), and each
-        up level's folded conv1 kernel, folded in float32 and cast once to
+        the float32 masters: each conv's float32 bias (`bias_f32`), each up
+        level's folded conv1 kernel, folded in float32 and cast once to
         `dtype` (`fold_weight`), as the JAX package does with its float32
-        parameters.  Call before casting the module to `dtype`
+        parameters, and for each layer of `lane_convs` its weights packed
+        for K5 in `dtype` (`packed_w`), so that no forward packs them again.
+        Call on the module's device, before casting it to `dtype`
         (convert_ckpt does)."""
         for m in self.modules():
             if isinstance(m, nn.Conv2d):
                 m.bias_f32 = m.bias.detach().to(torch.float32).clone()
+                m.packed_w = None
+        for _, conv in self.lane_convs():
+            conv.packed_w = pack_conv3_weights(conv.weight, dtype)
         for i in range(1, 6):
             blk = getattr(self, f"up{i}")
             blk.fold_weight = upfold_kernel(blk.conv1.weight.detach()).to(dtype)
@@ -198,7 +212,8 @@ class UNet(nn.Module):
         if not lane3_eligible(conv):
             return cls._act(conv, x)
         xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        return conv3x3_lane(xh, conv.weight, conv.bias_f32, 0.1).permute(0, 3, 1, 2)
+        return conv3x3_lane(xh, conv.weight, conv.bias_f32, 0.1,
+                            packed=conv.packed_w).permute(0, 3, 1, 2)
 
     def forward(self, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
         fold = fold_levels(conv_impl)

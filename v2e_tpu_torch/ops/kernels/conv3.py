@@ -7,14 +7,21 @@ launches the CUDA kernel (csrc/conv3x3.cu) for CUDA tensors and runs
 `conv3x3_lane_plain`, a float32 F.conv2d with the same epilogue, for CPU
 tensors.
 
-Design (see the source's note): an implicit GEMM (M = N*H*W pixels, N =
-Co, K = 9*Ci); one block per 8x16 output tile and 64 output channels
-stages its input tile with a one-pixel halo and one Ci slice of the weights
-in shared memory; bf16 runs WMMA 16x16x16 tensor-core products with
-float32 accumulation, f32 runs float32 FMAs.  The TPU kernel's tap
-rearrangements (hcol, zfull), made to fill its 128-lane matrix unit, are
-not carried over.  At the UNet's up-tail shapes the kernel is bound by
-bytes and tensor-core FLOPs about equally.
+Design (see the source's note).  bf16, the main path: a persistent,
+pipelined implicit GEMM for sm_90a (M = pixels, N = Co, K = 9*Ci).  One
+block per SM holds the layer's packed weights (`pack_conv3_weights`) in
+shared memory for the whole launch; its two warpgroups each walk their own
+output tiles (8 rows x 16 or 32 columns) through their own cp.async ring,
+which stages each tile with its halo, 32 (or 16) input channels at a time,
+ahead of the wgmma m64nCoTk16 products (float32 accumulators in
+registers; a tap's operand is the staged tile shifted, with no im2col
+copy); the epilogue adds the float32 bias, applies the activation, casts
+once, and stores 16-byte NHWC rows through stmatrix.  A layer whose
+weights do not fit beside the rings streams them with each stage.  f32
+(tests and the plain-precision UNet): float32 FMAs per 8x16 tile.  The
+TPU kernel's tap rearrangements (hcol, zfull), made to fill its 128-lane
+matrix unit, are not carried over.  At the UNet's up-tail shapes up4 is
+bound by tensor-core operations and up5 by bytes.
 
 The UNet's `packedz` form (models/unet.py) sends the k=3 layers with
 32 <= Co <= 64 here, as the JAX package's `_conv_block3_lane` does.  The
@@ -24,7 +31,7 @@ carried over: the kernel takes any H and W.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,16 +66,55 @@ def _ceil(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
+def conv3_pack_shape(ci: int, co: int, dtype: torch.dtype) -> Tuple[int, ...]:
+    """The shape `pack_conv3_weights` gives Co x Ci 3x3 weights for x of
+    `dtype`: bf16 [co_blocks, 9, CiP/8, CoT, 8] with CiP = Ci rounded up to
+    16 and CoT = 32 for Co <= 32, else 64; float32 [9, CiP, Co rounded up to
+    64]."""
+    cip = _ceil(ci, 16)
+    if dtype == torch.bfloat16:
+        cot = 32 if _ceil(co, 8) <= 32 else 64
+        return (-(-co // cot), 9, cip // 8, cot, 8)
+    return (9, cip, _ceil(co, 64))
+
+
+def pack_conv3_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW [Co,Ci,3,3] weights cast to `dtype` and laid out as K5 reads
+    them, zero past Ci and Co (see `conv3_pack_shape`).  bf16: per block of
+    CoT output channels, per tap ky*3+kx, per 8 input channels, the CoT
+    rows of 8 consecutive input channels: the K-major core matrices the
+    kernel's wgmma reads from shared memory.  float32: [tap][ci][co]."""
+    co, ci = int(w.shape[0]), int(w.shape[1])
+    shape = conv3_pack_shape(ci, co, dtype)
+    wt = w.detach().to(dtype)
+    if dtype == torch.bfloat16:
+        cb, _, ci8, cot, _ = shape
+        wp = wt.new_zeros((cb * cot, ci8 * 8, 3, 3))
+        wp[:co, :ci] = wt
+        # [cb, CoT, Ci/8, 8, ky, kx] -> [cb, ky, kx, Ci/8, CoT, 8]
+        return (wp.reshape(cb, cot, ci8, 8, 3, 3).permute(0, 4, 5, 2, 1, 3)
+                .reshape(shape).contiguous())
+    w9 = wt.new_zeros(shape)
+    w9[:, :ci, :co] = wt.permute(2, 3, 1, 0).reshape(9, ci, co)
+    return w9
+
+
 def conv3x3_lane(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, neg_slope: Optional[float] = 0.1
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    neg_slope: Optional[float] = 0.1,
+    packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K5 wrapper: the kernel for CUDA tensors, the plain version for CPU.
 
     x: contiguous NHWC [N,H,W,Ci] in bfloat16 or float32; w: OIHW
     [Co,Ci,3,3] (cast to x's type); b: [Co] (used in float32).  neg_slope
-    None skips the activation.  Returns [N,H,W,Co] in x's type.  Every call
-    is recorded in `conv3x3_lane.last_call` and counted by shape in
-    `conv3x3_lane.shapes`, ((N,H,W,Ci), Co); `launches` counts kernel
+    None skips the activation.  `packed`: w already laid out for the kernel
+    by `pack_conv3_weights(w, x.dtype)` (the UNet caches it); without it
+    the wrapper packs w on each call.  Returns [N,H,W,Co] in x's type.
+    Every call is recorded in `conv3x3_lane.last_call` and counted by shape
+    in `conv3x3_lane.shapes`, ((N,H,W,Ci), Co); `launches` counts kernel
     launches.
     """
     shape = (tuple(x.shape), int(w.shape[0]))
@@ -87,14 +133,33 @@ def conv3x3_lane(
                          f"{tuple(w.shape)} on {w.device}")
     if tuple(b.shape) != (Co,) or b.device != x.device:
         raise ValueError(f"b: expected [{Co}] on {x.device}, got {tuple(b.shape)} on {b.device}")
-    if N * _ceil(Co, 64) // 64 > 65535:
-        raise ValueError(f"batch {N} x {Co} channels exceeds the launch grid")
-    CiP, CoP = _ceil(Ci, 16), _ceil(Co, 64)
-    w9 = torch.zeros((9, CiP, CoP), dtype=x.dtype, device=x.device)
-    w9[:, :Ci, :Co] = w.to(x.dtype).permute(2, 3, 1, 0).reshape(9, Ci, Co)
+    want = conv3_pack_shape(Ci, Co, x.dtype)
+    if packed is None:
+        packed = pack_conv3_weights(w, x.dtype)
+    elif (tuple(packed.shape) != want or packed.dtype != x.dtype
+          or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError(f"packed: expected contiguous {x.dtype} {want} on {x.device}, got "
+                         f"{packed.dtype} {tuple(packed.shape)} on {packed.device}")
     bf = b.to(torch.float32).contiguous()
-    y = torch.empty((N, H, W, Co), dtype=x.dtype, device=x.device)
-    vec = int(Ci % 8 == 0 and x.data_ptr() % 16 == 0)
+    is_bf16 = x.dtype == torch.bfloat16
+    ci_k, co_k = Ci, Co
+    if is_bf16:
+        # the kernel copies 16 bytes (8 channels) at a time and stores
+        # 8 output channels at a time: pad Ci and Co to multiples of 8 and
+        # give it a 16-byte aligned input
+        ci_k, co_k = _ceil(Ci, 8), _ceil(Co, 8)
+        if ci_k != Ci or x.data_ptr() % 16:
+            xk = x.new_zeros((N, H, W, ci_k))
+            xk[..., :Ci] = x
+            x = xk
+        if co_k != Co:
+            bf = torch.cat([bf, bf.new_zeros(co_k - Co)])
+        cip, cop = want[2] * 8, want[0] * want[3]
+    else:
+        if N * _ceil(Co, 64) // 64 > 65535:
+            raise ValueError(f"batch {N} x {Co} channels exceeds the launch grid")
+        cip, cop = want[1], want[2]
+    y = torch.empty((N, H, W, co_k), dtype=x.dtype, device=x.device)
     fn = build.load("conv3x3").v2e_conv3x3
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -103,15 +168,15 @@ def conv3x3_lane(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w9.data_ptr()),
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
             ctypes.c_void_p(bf.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            N, H, W, Ci, Co, CiP, CoP,
+            N, H, W, ci_k, co_k, cip, cop,
             0.0 if neg_slope is None else float(neg_slope), int(neg_slope is not None),
-            int(x.dtype == torch.bfloat16), vec, ctypes.c_void_p(stream),
+            int(is_bf16), 1, ctypes.c_void_p(stream),
         )
     build.check(err, "conv3x3_lane")
     conv3x3_lane.launches += 1
-    return y
+    return y if co_k == Co else y[..., :Co].contiguous()
 
 
 # kernel launches made by `conv3x3_lane`; the last call's and every call's

@@ -4,13 +4,15 @@ refractory filter.
 K1 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_refractory_pallas.
 `refractory_scan` launches the CUDA kernel (csrc/emulator_scan.cu) for CUDA
 tensors and runs `refractory_scan_plain`, the same math as a loop over
-frames in PyTorch, for CPU tensors.  Design (see the source's note): two
-launches per frame on the current stream, a count pass that reduces the
-frame's largest count K into a device buffer with atomicMax, then an apply
-pass that reads K; no grid barrier, no host sync.  Bound by memory bytes:
-13 B per pixel per frame streamed (lp and leak f32, shot u8, counts and i0
-i16), plus 2F dependent launches.  The TPU sent planes above 256K pixels to
-the XLA scan; this kernel has no size limit.
+frames in PyTorch, for CPU tensors.  Design (see the source's note): one
+cooperative, persistent launch per call, its grid no larger than what can
+be resident; each thread owns a grid-strided set of pixels and keeps their
+state in registers (in L2-resident global memory on planes too large for
+that), and per frame reduces the largest count K across the grid in a
+barrier whose slots carry each block's maximum, then applies the filter.  Bound by
+memory bytes, 13 B per pixel per frame (lp and leak f32, shot u8, counts
+and i0 i16), and at the CLI's planes by the F grid barriers.  The TPU sent
+planes above 256K pixels to the XLA scan; this kernel has no size limit.
 
 K2 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_pallas, the
 core of every configuration with R <= 0.  `scan` launches its kernel (same
@@ -149,7 +151,9 @@ def refractory_scan(
     new_mem = timestamp_mem.clone()
     counts = torch.empty((F, H, W), dtype=torch.int16, device=dev)
     i0 = torch.empty_like(counts)
-    K = torch.zeros(F, dtype=torch.int32, device=dev)
+    grid = refractory_grid(H * W, dev)
+    # K, then the grid barrier's 2 x blocks 64-bit slots, zeroed
+    k_buf = torch.zeros(F + F % 2 + 4 * grid[0], dtype=torch.int32, device=dev)
     lib = build.load("emulator_scan")
     fn = lib.v2e_refractory_scan
     fn.argtypes = [ctypes.c_void_p] * 12 + [
@@ -161,16 +165,40 @@ def refractory_scan(
         err = fn(
             _ptr(lp), _ptr(leak_delta), _ptr(shot_any), _ptr(pos_thres),
             _ptr(neg_thres), _ptr(new_base), _ptr(new_mem), _ptr(dts),
-            _ptr(t_prevs), _ptr(K), _ptr(counts), _ptr(i0),
+            _ptr(t_prevs), _ptr(k_buf), _ptr(counts), _ptr(i0),
             F, H * W, float(refractory_period_s), ctypes.c_void_p(stream),
         )
     build.check(err, "refractory_scan")
-    refractory_scan.launches += 2 * F
-    return new_base, new_mem, counts, i0, K
+    refractory_scan.launches += 1
+    refractory_scan.last_call = ((F, H, W), grid)
+    return new_base, new_mem, counts, i0, k_buf[:F]
 
 
-# kernel launches made by `refractory_scan` (two per frame)
+def refractory_grid(npix: int, device: torch.device) -> Tuple[int, int, int]:
+    """(blocks, threads per block, pixels per thread held in registers, 0
+    for the global-state form) of K1's cooperative launch for `npix`
+    pixels on `device`."""
+    key = (npix, device.index)
+    if key in _GRIDS:
+        return _GRIDS[key]
+    fn = build.load("emulator_scan").v2e_refractory_scan_grid
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(device):
+        err = fn(npix, *(ctypes.byref(v) for v in out))
+    build.check(err, "refractory_grid")
+    _GRIDS[key] = tuple(v.value for v in out)
+    return _GRIDS[key]
+
+
+_GRIDS = {}
+
+
+# kernel launches made by `refractory_scan` (one per call), and the last
+# call's ([F,H,W], (blocks, threads, pixels per thread in registers))
 refractory_scan.launches = 0
+refractory_scan.last_call = None
 
 
 def scan_plain(
