@@ -43,7 +43,13 @@ Phases, each printed on its own line with its seconds:
      must agree;
   7. K2 (refractory-free scan) against its plain version at the shape run B
      launched it with (96 frames of 260x346), with the noisy preset's leak
-     and shot noise: counts equal, base within 1e-6;
+     and shot noise, again at 96 frames of 720x1280 and in the clean form
+     (no leak, no shot) at run B's shape: counts equal, base within 1e-6,
+     one launch per call; each shape's grid, ring depth and share of its
+     bound printed (a slow kernel is printed, not failed), its time also
+     with the host's enqueue taken out; then emulate_chunk_apply, the
+     function that calls K2, timed at run B's shape under the noisy
+     preset, as it runs and with K2's call replaced by its result;
   8. K4 (tiled warp) against its plain version at the shape run A launched
      it with, flows with tile means of 33-120 px and a case where the
      residual clamp acts: max abs difference <= 1e-5; F.grid_sample is timed
@@ -277,63 +283,168 @@ def phase_k3(torch, dev):
     }
 
 
-def phase_k2(torch, dev, shape, launches):
-    """K2 at the shape the CLI's run B launched it with, with the noisy
-    preset's leak and shot noise drawn as emulate_chunk_apply draws them."""
+def k2_inputs(torch, dev, F, h, w, noisy=True, seed=4):
+    """K2's inputs at F x h x w: the moving-bar log frames of refr_inputs,
+    and with `noisy` the noisy preset's leak and shot noise drawn as
+    emulate_chunk_apply draws them at run B's frame interval.  Returns the
+    scan's arguments."""
     from v2e_tpu_torch.emulator.config import EmulatorConfig
     from v2e_tpu_torch.ops.core import generate_shot_noise, rescale_intensity_frame
-    from v2e_tpu_torch.ops.kernels.emulator_scan import scan, scan_plain
 
     cfg = EmulatorConfig.noisy()
-    F, h, w = shape
-    if (h, w) != (H, W):
-        raise AssertionError(f"run B launched K2 at {shape}, not at {H}x{W}")
-    g = torch.Generator(device=dev).manual_seed(4)
+    g = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
-    yy = torch.arange(H, device=dev, dtype=f32)[:, None]
-    xx = torch.arange(W, device=dev, dtype=f32)[None, :]
+    yy = torch.arange(h, device=dev, dtype=f32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=f32)[None, :]
     tt = torch.arange(F, device=dev, dtype=f32)[:, None, None]
     bar = (torch.remainder(xx + 0.5 * yy - 3.0 * tt, 96.0) < 10.0).to(f32)
     lp = (4.6 + 0.6 * torch.sin((xx + 0.2 * tt) / 17.0) * torch.cos(yy / 13.0)
-          + 2.5 * bar + 0.02 * torch.randn((F, H, W), generator=g, device=dev))
-    pos = torch.clamp(cfg.pos_thres + cfg.sigma_thres * torch.randn((H, W), generator=g, device=dev), min=0.01)
-    neg = torch.clamp(cfg.neg_thres + cfg.sigma_thres * torch.randn((H, W), generator=g, device=dev), min=0.01)
-    rate = torch.exp(2.302585 * cfg.noise_rate_cov_decades * torch.randn((H, W), generator=g, device=dev))
+          + 2.5 * bar + 0.02 * torch.randn((F, h, w), generator=g, device=dev))
+    pos = torch.clamp(cfg.pos_thres + cfg.sigma_thres * torch.randn((h, w), generator=g, device=dev), min=0.01)
+    neg = torch.clamp(cfg.neg_thres + cfg.sigma_thres * torch.randn((h, w), generator=g, device=dev), min=0.01)
+    rate = torch.exp(2.302585 * cfg.noise_rate_cov_decades * torch.randn((h, w), generator=g, device=dev))
     dt = 1.0 / (SRC_FPS * RUN_B_U)
     leak = (dt * (cfg.leak_rate_hz * rate)
-            * (1.0 - cfg.leak_jitter_fraction * torch.randn((F, H, W), generator=g, device=dev)) * pos)
+            * (1.0 - cfg.leak_jitter_fraction * torch.randn((F, h, w), generator=g, device=dev)) * pos)
     inten01 = rescale_intensity_frame(torch.exp(lp).clamp(max=255.0))
     on, off = generate_shot_noise(
-        torch.rand((F, H, W), generator=g, device=dev), cfg.shot_noise_rate_hz, dt,
+        torch.rand((F, h, w), generator=g, device=dev), cfg.shot_noise_rate_hz, dt,
         cfg.shot_noise_inten_factor, inten01, 0.2 / pos, 0.2 / neg)
     shot = (on | off).to(torch.uint8)
-    base = lp[0] + 0.05 * torch.randn((H, W), generator=g, device=dev)
-    args = (lp, leak.contiguous(), shot, pos, neg, base)
+    base = lp[0] + 0.05 * torch.randn((h, w), generator=g, device=dev)
+    if not noisy:
+        return lp, None, None, pos, neg, base
+    return lp, leak.contiguous(), shot, pos, neg, base
 
+
+def time_device_ms(torch, fn, reps: int, warm: int = 1) -> float:
+    """time_ms with the host's enqueue taken out: the stream first sleeps
+    long enough for the host to queue all `reps` calls, so the events time
+    the device's back-to-back run of them."""
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)  # ~10 ms at the H100's clocks
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2):
+    """K2 against its plain version on k2_inputs: counts equal, base within
+    1e-6, one launch per call; then both timed.  Returns the numbers."""
+    from v2e_tpu_torch.ops.kernels.emulator_scan import GROUP, RING, scan, scan_plain
+
+    args = k2_inputs(torch, dev, F, h, w, noisy)
+    before = scan.launches
     got = scan(*args)
+    per_call = scan.launches - before
     want = scan_plain(*args)
     torch.cuda.synchronize()
     n_bad = int((got[1] != want[1]).sum())
     if n_bad:
-        raise AssertionError(f"K2 counts: {n_bad} entries differ from the plain version")
+        raise AssertionError(f"K2 {tag}: {n_bad} counts differ from the plain version")
     err = float((got[0] - want[0]).abs().max())
     if not err <= 1e-6:
-        raise AssertionError(f"K2 base differs by {err} > 1e-6")
+        raise AssertionError(f"K2 {tag}: base differs by {err} > 1e-6")
+    if per_call != 1:
+        raise AssertionError(f"K2 {tag}: {per_call} launches per call, not 1")
+    plan = scan.last_plan
     ms = time_ms(torch, lambda: scan(*args), reps=20)
-    plain_ms = time_ms(torch, lambda: scan_plain(*args), reps=2)
-    npix = H * W
-    nbytes = F * npix * (4 + 4 + 1 + 2) + npix * 4 * 4
+    dev_ms = time_device_ms(torch, lambda: scan(*args), reps=20)
+    plain_ms = time_ms(torch, lambda: scan_plain(*args), reps=plain_reps)
+    scan.launches = before  # comparison launches do not count
+    npix = h * w
+    nbytes = F * npix * (4 + (4 + 1 if noisy else 0) + 2) + npix * 4 * 4
     b_ms, b_by = bound(nbytes, F * npix * 15)
-    log(f"[k2] scan F={F} {H}x{W} (noisy preset leak and shot, {int(shot.sum())} shot "
-        f"resets): counts equal, base max abs err {err:.3g}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {int(got[1].abs().sum())} events; "
-        f"{launches} launches in run B")
+    grid = (f"grid {plan.blocks} x {plan.threads} threads, {len(plan.tiles)} tiles of up to "
+            f"{plan.tile} px, ring {RING} stages x {GROUP} frames x {plan.frame_bytes} B "
+            f"({plan.smem_bytes} B of shared memory)")
+    noise = (f"noisy preset leak and shot, {int(args[2].sum())} shot resets" if noisy
+             else "clean: no leak, no shot")
+    log(f"[k2] {tag}: scan F={F} {h}x{w} ({noise}): "
+        f"counts equal, base max abs err {err:.3g}; {per_call} launch per call, {grid}; "
+        f"kernel {ms:.4f} ms (device only {dev_ms:.4f}), plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of it ({b_ms / dev_ms:.1%} device only); "
+        f"{int(got[1].abs().sum())} events")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "frames": F, "shape": [h, w],
+            "ring_frames": RING * GROUP}
+
+
+def time_chunk_apply(torch, dev, F, h, w):
+    """emulate_chunk_apply (emulator/core.py), the function that calls K2,
+    under the noisy preset (R = 0) on F frames of h x w: timed as it runs,
+    and with K2's call replaced by its result, alternately 5 times each
+    (the call is host-bound, so its wall spreads); then once under the
+    profiler, which splits its device time by kernel.  Returns the two
+    medians."""
+    import v2e_tpu_torch.emulator.core as core
+    from v2e_tpu_torch.emulator.config import EmulatorConfig
+    from v2e_tpu_torch.emulator.state import init_state
+
+    cfg = EmulatorConfig.noisy()
+    g = torch.Generator(device=dev).manual_seed(5)
+    frames = 255.0 * torch.rand((F + 1, h, w), generator=g, device=dev)
+    params, state = init_state(cfg, frames[0], 0.0, g)
+    times = torch.arange(1, F + 1, device=dev, dtype=torch.float32) / (SRC_FPS * RUN_B_U)
+    draws = core.draw_chunk_noise(cfg, F, (h, w), g, dev)
+
+    def run():
+        return core.emulate_chunk_apply(cfg, params, state, frames[1:], times, draws)
+
+    real = core.scan
+    kept = []
+
+    def record(*a):
+        kept.append(real(*a))
+        return kept[-1]
+
+    with_k2, without = [], []
+    try:
+        core.scan = record
+        run()
+        for _ in range(5):
+            core.scan = real
+            with_k2.append(time_ms(torch, run, reps=4))
+            core.scan = lambda *a: kept[0]
+            without.append(time_ms(torch, run, reps=4))
+    finally:
+        core.scan = real
+    ms, without_ms = sorted(with_k2)[2], sorted(without)[2]
+    profile_device(torch, "k2", run, ms, "emulate_chunk_apply at run B's shape", top=6)
+    return ms, without_ms
+
+
+def phase_k2(torch, dev, shape, launches):
+    """K2 at the shape the CLI's run B launched it with (the noisy preset's
+    leak and shot noise), at 720x1280 with the same frames and noise, and in
+    the clean form (no leak, no shot) at run B's shape; then
+    emulate_chunk_apply, the function that calls K2, at run B's shape."""
+    F, h, w = shape
+    if (h, w) != (H, W):
+        raise AssertionError(f"run B launched K2 at {shape}, not at {H}x{W}")
+    main = check_k2(torch, dev, F, h, w, True, "run B shape")
+    big = check_k2(torch, dev, F, 720, 1280, True, "720x1280", plain_reps=1)
+    clean = check_k2(torch, dev, F, h, w, False, "clean form")
+    apply_ms, without_ms = time_chunk_apply(torch, dev, F, h, w)
+    log(f"[k2] emulate_chunk_apply at run B's shape (noisy): {apply_ms:.4f} ms per chunk "
+        f"(median of 5), {without_ms:.4f} ms with K2's call replaced by its result; "
+        f"{launches} K2 launches in run B")
+    main.pop("frames")
+    main.pop("shape")
     return {
         "name": "scan", "route": "cuda", "launches": launches,
         "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
         "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:72",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "library_ms": None, **main,
+        "at_720x1280": big, "clean": clean, "chunk_apply_ms": apply_ms,
+        "chunk_apply_without_k2_ms": without_ms,
     }
 
 

@@ -4,7 +4,9 @@ Marked `gpu`; each test skips when no CUDA device is present (decided in a
 fixture, so every test worker collects the same tests).  On an H100:
     python -m pytest tests/test_torch_kernels_gpu.py -q
 Tolerance: K1 counts, i0 and K identical, base and memory within 1e-6; K2
-counts identical, base within 1e-6; K3 and K4 within 1e-5; K5 in float32
+counts identical, base within 1e-6 (at CLI run B's shape, at 720x1280, in
+the clean form, with one stream absent, at F = 1 and F below the ring
+depth, and from views whose data pointers are not 16-byte aligned); K3 and K4 within 1e-5; K5 in float32
 within 1e-5 (float32 sums in another order, inputs of unit scale: measured
 4.3e-6), in bf16 within one bf16 ulp of each element, or 1e-5 absolute near
 zero where the two float32 sums' own rounding exceeds an ulp (measured up
@@ -99,6 +101,99 @@ def test_scan_kernel_matches_plain(cuda, noise):
     assert torch.equal(got[1], want[1])
     assert int(got[1].abs().sum()) > 1000
     assert float((got[0] - want[0]).abs().max()) <= 1e-6
+
+
+def scan_inputs(cuda, F, H, W, leak=True, shot=True, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lp = 4.6 + 0.4 * torch.randn((F, H, W), generator=g, device=cuda)
+    pos = 0.2 + 0.03 * torch.rand((H, W), generator=g, device=cuda)
+    neg = 0.2 + 0.03 * torch.rand((H, W), generator=g, device=cuda)
+    base = lp[0] + 0.05 * torch.randn((H, W), generator=g, device=cuda)
+    lk = 1e-3 * torch.rand((F, H, W), generator=g, device=cuda) if leak else None
+    sh = ((torch.rand((F, H, W), generator=g, device=cuda) < 0.01).to(torch.uint8)
+          if shot else None)
+    return lp, lk, sh, pos, neg, base
+
+
+def unaligned(t, elems):
+    """A contiguous copy of t whose data pointer is `elems` elements past
+    an allocation's start (not 16-byte aligned)."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = flat[elems: elems + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    return out
+
+
+def assert_scan_matches_plain(args):
+    n0 = scan.launches
+    got = scan(*args)
+    assert scan.launches == n0 + 1
+    want = scan_plain(*args)
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] - want[0]).abs().max()) <= 1e-6
+    return got
+
+
+@pytest.mark.parametrize("F,H,W,leak,shot", [
+    (96, 260, 346, True, True),    # CLI run B's shape (noisy preset)
+    (96, 260, 346, False, False),  # the clean form
+    (96, 720, 1280, True, True),   # tiles: strips longer than a block's threads
+    (1, 37, 301, True, True),      # one frame
+    (3, 37, 301, True, True),      # fewer frames than the ring's stages
+    (20, 37, 301, True, False),    # leak only
+    (20, 37, 301, False, True),    # shot only
+    (5, 1, 17, True, True),        # 17 pixels: two blocks, a partial unit
+])
+def test_scan_kernel_at_more_shapes(cuda, F, H, W, leak, shot):
+    args = scan_inputs(cuda, F, H, W, leak, shot)
+    got = assert_scan_matches_plain(args)
+    plan = scan.last_plan
+    assert plan.npix == H * W and plan.smem_bytes <= 232_448
+    assert len(plan.strips) - 1 == min(torch.cuda.get_device_properties(cuda)
+                                       .multi_processor_count, -(-H * W // 16))
+    if F > 1:
+        assert int(got[1].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("F,H,W", [(20, 37, 301), (9, 260, 346)])
+def test_scan_kernel_unaligned_views(cuda, F, H, W):
+    lp, leak, shot, pos, neg, base = scan_inputs(cuda, F, H, W)
+    args = (unaligned(lp, 1), unaligned(leak, 3), unaligned(shot, 1), pos, neg, base)
+    got = assert_scan_matches_plain(args)
+    assert torch.equal(got[1], scan(lp, leak, shot, pos, neg, base)[1])
+
+
+@pytest.mark.parametrize("refusal", ["shared_memory", "threads"])
+def test_scan_kernel_raises_and_never_falls_back(cuda, monkeypatch, refusal):
+    """A plan the card refuses raises from the wrapper, with no launch
+    counted and no CUDA tensor sent to the plain version: more shared
+    memory than a block may have (cudaFuncSetAttribute refuses it), or more
+    threads than the kernel takes."""
+    from v2e_tpu_torch.ops.kernels import emulator_scan
+
+    args = scan_inputs(cuda, 4, 37, 301)
+    plan, _, tiles = emulator_scan._device_plan(
+        37 * 301, 4, args[0].device.index, *emulator_scan.stream_layout(*args[:3]))
+    bad = emulator_scan.c_plan(plan)
+    if refusal == "shared_memory":
+        bad.frame_bytes = 16 * 1024
+        ring = emulator_scan.RING * emulator_scan.GROUP * bad.frame_bytes
+        bad.smem_bytes = emulator_scan.BAR_BYTES + ring
+    else:
+        bad.threads = 2048
+
+    def refuse(*a, **k):
+        raise AssertionError("scan_plain reached with CUDA tensors")
+
+    monkeypatch.setattr(emulator_scan, "scan_plain", refuse)
+    monkeypatch.setattr(emulator_scan, "_device_plan", lambda *a: (plan, bad, tiles))
+    n0 = scan.launches
+    with pytest.raises(RuntimeError):
+        scan(*args)
+    assert scan.launches == n0
+    monkeypatch.undo()
+    assert_scan_matches_plain(args)  # the refusal left no fault behind
 
 
 @pytest.mark.parametrize("max_base", [128, 256])

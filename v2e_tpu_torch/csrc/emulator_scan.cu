@@ -75,46 +75,10 @@ __device__ __forceinline__ float mul_add_once(float a, float b, float c) {
   return (float)((double)a * (double)b + (double)c);
 }
 
-__device__ __forceinline__ int pixel_count(float lp, float base, float pos,
-                                           float neg, float* pe, float* ne) {
-  float diff = lp - base;
-  *pe = floorf(fmaxf(diff, 0.0f) / pos);
-  *ne = floorf(fmaxf(-diff, 0.0f) / neg);
-  return (int)(*pe + *ne);
-}
-
-// K2: the core without the refractory filter.  Each thread owns one pixel
-// and walks the F frames in order with base in a register.
-__global__ void scan_kernel(const float* __restrict__ lp,
-                            const float* __restrict__ leak,
-                            const uint8_t* __restrict__ shot,
-                            const float* __restrict__ pos,
-                            const float* __restrict__ neg,
-                            float* __restrict__ base, int n_frames, int npix,
-                            int16_t* __restrict__ count_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= npix) return;
-  float b = base[i];
-  float pth = pos[i];
-  float nth = neg[i];
-#pragma unroll 4
-  for (int f = 0; f < n_frames; ++f) {
-    size_t off = (size_t)f * (size_t)npix + (size_t)i;
-    float l = lp[off];
-    if (leak != nullptr) b = b - leak[off];
-    float pe, ne;
-    pixel_count(l, b, pth, nth, &pe, &ne);
-    b = mul_add_once(pe, pth, b);
-    b = mul_add_once(-ne, nth, b);
-    if (shot != nullptr && shot[off] != 0) b = l;
-    count_out[off] = (int16_t)(int)(pe - ne);
-  }
-  base[i] = b;
-}
-
-// pixel_count for K1, where a frame's latency is its cost: the same counts
-// without dividing zero (the IEEE division takes its slow path on a zero
-// numerator, and one of the two numerators is always zero).  pe and ne
+// The ON and OFF counts of K1, where a frame's latency is its cost:
+// floor(relu(+-diff)/thr) without dividing zero (the IEEE division takes
+// its slow path on a zero numerator, and one of the two numerators is
+// always zero).  pe and ne
 // only feed comparisons with 0 and conversions to int, where the sign of
 // a zero does not matter.
 __device__ __forceinline__ int pixel_count_k1(float lp, float base, float pos,
@@ -436,6 +400,7 @@ extern "C" int v2e_refractory_scan(const float* lp, const float* leak,
   return (int)cudaGetLastError();
 }
 
+
 // K2: the emulator's sequential core without the refractory filter, the
 // path of every configuration with R <= 0 (the clean and noisy presets).
 //
@@ -447,31 +412,400 @@ extern "C" int v2e_refractory_scan(const float* lp, const float* leak,
 // base += pos*pos_thr - neg*neg_thr; base = lp[f] where shot noise fired;
 // counts[f] = pos - neg.
 //
-// Design.  No pixel depends on another, so one launch covers the chunk:
-// one thread per pixel loops over the F frames with base in a register
-// (scan_kernel above).  The TPU kernel cut F into segments of 128 frames
-// to bound its VMEM blocks; a thread here holds one frame's values at a
-// time, so there is no segmenting and the counts are those of one pass.
-// Reads of frame f are coalesced across the threads of a warp.
-//
 // Bound on the card: it streams lp and leak (f32) and the shot mask (u8) in
-// and writes counts (i16): 11 bytes per pixel per frame, plus base and the
-// thresholds once; some 15 operations per pixel and frame.  So it is bound
-// by memory bytes.
+// and writes counts (i16), 11 bytes per pixel per frame, plus base (in and
+// out) and the thresholds once; some 15 operations per pixel and frame.  So
+// bytes bound it: 0.0288 ms for 96 frames of 260x346 at 3.35 TB/s, 0.295 ms
+// for 96 frames of 720x1280.
 //
-// Rounding: as K1, built with --fmad=false, and the base update is one
-// float64 multiply-add rounded once per term (the reference's XLA program
+// Design.  No pixel depends on another; each pixel's frames depend on the
+// one before through base.  A thread per pixel that loads each frame when
+// it reaches it waits one DRAM round trip per frame, so latency, not bytes,
+// sets the time (the first port: 0.10 ms at 260x346, F=96).  Hence:
+//   - one persistent block per SM.  The plane is cut into strips of whole
+//     16-pixel units, one per block, their sizes differing by at most one
+//     unit, so every SM carries the same share; a strip of more than
+//     kScanMaxTile pixels (720x1280) is walked in tiles of equal size, the
+//     whole F loop per tile.  Each consumer thread owns one pixel of the
+//     tile and keeps its base and thresholds in registers for all F frames;
+//     the next tile's are loaded meanwhile.
+//   - the loads run ahead in a ring of kScanRing stages in dynamic shared
+//     memory.  A stage holds kScanGroup frames of one tile (lp, leak and
+//     shot, each present stream in its own region).  One producer thread,
+//     alone in the last warp, fills the ring with cp.async.bulk copies (1-D
+//     TMA) that complete on the stage's full mbarrier; the consumer warps
+//     wait on it, compute its frames, and release it on its empty mbarrier.
+//     The ring runs on across tiles, so one tile's first frames load while
+//     the last one ends.
+//   - a short per-frame chain (scan_step): one division, only where the
+//     quotient reaches 1, and one float64 FMA for the base update.
+// The plan.  ops/kernels/emulator_scan.py::scan_plan decides, for the
+// plane, the frame count and each stream's data pointer mod 16, everything
+// that says which bytes a copy moves: the tiles of each block, each tile's
+// interior frames (those whose slices lie, in every stream, inside the
+// tensor's aligned interior), and per stream its pointer's offset in its
+// granule, the offset's step per frame, the aligned interior in bytes and
+// the elements inside it.  The launch takes the plan as a parameter (the
+// tile table in device memory); the kernel keeps only copy_range (the
+// slice's granules, clipped to the interior outside the interior frames)
+// and the running offsets, which tests/test_torch_scan_plan.py models on
+// the CPU beside the plan.
+// What the H100 showed (the numbers are in PERF.md): once the loads run
+// ahead, the consumers' instructions bound the kernel at 260x346 (22 warps
+// per SM), not the loads.  Rings of 8 to 64 frames took the same time, and
+// loading the next frame into registers before computing this one was
+// slower.  What helped was fewer instructions per pixel-frame (one division
+// and one multiply-add path instead of one per sign, the thresholds in
+// float64 once per tile, the interior test once per frame from the plan,
+// incremental offsets) and one barrier wait and release per 4 frames (4
+// over 1, 2 and 8).  Two or four pixels per thread (fewer warps) were
+// slower at 260x346; at 720x1280 two matched what the final kernel reaches
+// with one, near the card's byte rate.  The bulk copies are not weighed
+// against per-thread cp.async: they take no instructions from the
+// consumers, whose issue rate is the bound.
+// Alignment.  A bulk copy needs 16-byte-aligned addresses and a size that
+// is a multiple of 16, and a frame's slice of a stream rarely has either
+// (the u8 shot frame of 260x346 is 89,960 B, 8 mod 16; a view can start at
+// any element).  Tiles start at multiples of 16 pixels, so every tile's
+// slice of frame 0 starts at the stream's pointer offset in its granule.
+// Each copy takes the whole 16-byte granules that hold the tile's slice, so
+// the stage mirrors their layout and the consumer reads element c at byte
+// offset + 4c (or + c) of the stream's region.  Neighbouring tiles both copy
+// the granule they share.  Only granules that reach outside the tensor (its
+// first and last, when its ends are not aligned) are left out; their
+// elements are read from global memory, never past the tensor's ends.
+// The mbarrier phases: stage s of pass n is waited full with parity n & 1
+// and empty with parity (n & 1) ^ 1 (the first pass finds it free), over
+// one running count of stages shared by producer and consumers (each
+// tile's F frames in groups, the last group maybe short), so a ring
+// deeper than F frames, or F = 1, waits on no phase that never completes.
+// The producer raises the stage's byte count before each frame's copies
+// and arrives once, after all of them.
+// Rounding: as K1, built with --fmad=false; the base update is one float64
+// multiply-add rounded once to float32 (the reference's XLA program
 // contracts it into an FMA); at most one of pos and neg is non-zero.
-//
-// base is updated in place; leak and shot may be null.  One launch on
-// `stream`, no sync.  Returns cudaGetLastError().
-extern "C" int v2e_scan(const float* lp, const float* leak, const uint8_t* shot,
-                        const float* pos, const float* neg, float* base,
-                        int16_t* counts, int n_frames, int npix, void* stream) {
-  if (npix == 0 || n_frames == 0) return 0;
-  const int threads = 256;
-  const int blocks = (npix + threads - 1) / threads;
-  scan_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      lp, leak, shot, pos, neg, base, n_frames, npix, counts);
+
+constexpr int kScanMaxBlocks = 512;
+constexpr int kScanStreams = 3;  // lp, leak, shot
+
+// The launch plan (ops/kernels/emulator_scan.py::scan_plan; its ctypes twin
+// is _CPlan there), outside the unnamed namespace: v2e_scan takes it and
+// must keep external linkage.  Per stream s (-1 / 0 where absent):
+// region[s], its byte offset in a frame's part of a stage; offset[s], its
+// data pointer mod 16; step[s], how far a slice's offset in its granule
+// moves per frame; [lo[s], hi[s]), the tensor's aligned interior in bytes
+// from the pointer's granule; [first[s], end[s]), the elements wholly
+// inside it.  Block b runs tiles block_tiles[b] to block_tiles[b + 1] - 1
+// of the tile table (t0, t1, f_lo, f_hi: pixels [t0, t1), interior frames
+// [f_lo, f_hi]).  A stage is kScanGroup frames of frame_bytes.
+struct ScanPlan {
+  long long lo[kScanStreams], hi[kScanStreams], first[kScanStreams], end[kScanStreams];
+  int npix, n_frames, blocks, threads, tile, frame_bytes, smem_bytes;
+  int region[kScanStreams], offset[kScanStreams], step[kScanStreams];
+  int block_tiles[kScanMaxBlocks + 1];
+};
+
+namespace {
+
+constexpr int kScanMaxTile = 992;  // consumer threads; + the producer warp: 1024
+constexpr int kScanGroup = 4;      // frames per stage
+constexpr int kScanRing = 6;       // stages
+constexpr int kScanBarBytes = 128;  // the 2 x kScanRing mbarriers, padded
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Raises the bytes the barrier's current phase waits for (no arrival).
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, uintptr_t src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// One stream's copy for one frame of a tile, in bytes from the stream's
+// granule: the 16-byte granules that hold the slice [r, r + n), clipped to
+// the tensor's aligned interior [lo, hi) unless the plan marks the frame
+// interior; dst is the copy's offset in the stream's region.  Modelled in
+// tests/test_torch_scan_plan.py::copy_range.
+struct Bulk {
+  long long src;
+  uint32_t size, dst;
+};
+
+__device__ __forceinline__ Bulk copy_range(long long r, int n, bool interior, long long lo,
+                                           long long hi) {
+  const long long g = r & ~15ll;
+  long long src = g, end = (r + n + 15) & ~15ll;
+  if (!interior) {
+    src = src > lo ? src : lo;
+    end = end < hi ? end : hi;
+  }
+  return {src, end > src ? (uint32_t)(end - src) : 0u, (uint32_t)(src - g)};
+}
+
+// Element x of a stream outside its tile's interior frames: from the stage
+// (at s) where the plan says its granule was copied, else from global
+// memory.
+template <class T>
+__device__ __forceinline__ T staged(const unsigned char* s, const T* g, long long x,
+                                    long long first, long long end) {
+  return x >= first && x < end ? *reinterpret_cast<const T*>(s) : g[x];
+}
+
+// One pixel's frame after the leak, as scan_plain computes it: the
+// signed count floor(relu(+-diff)/thr), and the base update base +=
+// pos*pth, then base -= neg*nth, then the shot reset.  One division and
+// one multiply-add, on |diff| and the threshold of its sign:
+//   - it divides only where the quotient reaches 1.  For floats 0 < d < t
+//     the quotient d/t is at most 1 - 2^-23/m, m in [1, 2) the mantissa of
+//     t (1 - 2^-24 when m = 1), so it rounds to at most 1 - 2^-24, the
+//     float below 1: its floor is 0.  !(d < t) keeps a NaN threshold on
+//     the division, as in scan_plain; a zero or NaN diff counts nothing.
+//   - at most one of the reference's two terms is non-zero, and a zero
+//     term only adds +0, which turns a -0 base into +0 and changes nothing
+//     else.  The product of two floats is exact in float64, so one float64
+//     FMA rounds as the reference's multiply-add evaluated in float64 does,
+//     before its one rounding to float32.
+// dpth and dnth are pth and nth in float64.
+__device__ __forceinline__ int scan_step(float l, float& b, float pth, float nth, double dpth,
+                                         double dnth, bool shot) {
+  const float diff = l - b;
+  const bool up = diff > 0.0f;
+  const float a = up ? diff : -diff;
+  const float thr = up ? pth : nth;
+  float q = 0.0f;
+  if ((up || diff < 0.0f) && !(a < thr)) q = floorf(a / thr);
+  const float sq = up ? q : -q;
+  const float bb =
+      q != 0.0f ? (float)__fma_rn((double)sq, up ? dpth : dnth, (double)b) : b + 0.0f;
+  b = shot ? l : bb;
+  return (int)sq;
+}
+
+template <bool kLeak, bool kShot>
+__global__ void __launch_bounds__(kScanMaxTile + 32, 1)
+scan_persistent(const __grid_constant__ ScanPlan plan, const int4* __restrict__ tiles,
+                const float* __restrict__ lp, const float* __restrict__ leak,
+                const uint8_t* __restrict__ shot, const float* __restrict__ pos,
+                const float* __restrict__ neg, const float* __restrict__ base_in,
+                float* __restrict__ base_out, int16_t* __restrict__ count_out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kScanRing;
+  unsigned char* stages = smem + kScanBarBytes;
+  const int consumers = (plan.threads >> 5) - 1;  // warps; the last one loads
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kScanRing; ++i) {
+      mbar_init(smem_u32(full + i), 1);
+      mbar_init(smem_u32(empty + i), consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int npix = plan.npix, n_frames = plan.n_frames;
+  const int stage_bytes = kScanGroup * plan.frame_bytes;
+  const int k0 = plan.block_tiles[blockIdx.x], k1 = plan.block_tiles[blockIdx.x + 1];
+  const uint32_t full0 = smem_u32(full), empty0 = smem_u32(empty);
+  uint32_t stage = 0, phase = 0;
+
+  if (warp == consumers) {  // the producer
+    if (lane != 0) return;
+    const uintptr_t g_lp = (uintptr_t)lp & ~(uintptr_t)15;
+    const uintptr_t g_leak = (uintptr_t)leak & ~(uintptr_t)15;
+    const uintptr_t g_shot = (uintptr_t)shot & ~(uintptr_t)15;
+    const uint32_t st0 = smem_u32(stages);
+    for (int k = k0; k < k1; ++k) {
+      const int4 t = tiles[k];
+      const int len = t.y - t.x;
+      // each stream's slice of frame f, in bytes from its granule
+      long long r_lp = plan.offset[0] + 4ll * t.x, r_leak = plan.offset[1] + 4ll * t.x,
+                r_shot = plan.offset[2] + (long long)t.x;
+      for (int f0 = 0; f0 < n_frames; f0 += kScanGroup) {
+        mbar_wait(empty0 + 8 * stage, phase ^ 1u);
+        const uint32_t bar = full0 + 8 * stage;
+        uint32_t st = st0 + stage * stage_bytes;
+#pragma unroll
+        for (int g = 0; g < kScanGroup; ++g) {
+          const int f = f0 + g;
+          if (f < n_frames) {
+            const bool in = f >= t.z && f <= t.w;
+            const Bulk b_lp = copy_range(r_lp, 4 * len, in, plan.lo[0], plan.hi[0]);
+            Bulk b_leak = {0, 0, 0}, b_shot = {0, 0, 0};
+            if (kLeak) b_leak = copy_range(r_leak, 4 * len, in, plan.lo[1], plan.hi[1]);
+            if (kShot) b_shot = copy_range(r_shot, len, in, plan.lo[2], plan.hi[2]);
+            mbar_expect_tx(bar, b_lp.size + b_leak.size + b_shot.size);
+            if (b_lp.size)
+              bulk_load(st + plan.region[0] + b_lp.dst, g_lp + b_lp.src, b_lp.size, bar);
+            if (kLeak && b_leak.size)
+              bulk_load(st + plan.region[1] + b_leak.dst, g_leak + b_leak.src, b_leak.size, bar);
+            if (kShot && b_shot.size)
+              bulk_load(st + plan.region[2] + b_shot.dst, g_shot + b_shot.src, b_shot.size, bar);
+            r_lp += 4ll * npix;
+            r_leak += 4ll * npix;
+            r_shot += npix;
+            st += plan.frame_bytes;
+          }
+        }
+        mbar_arrive(bar);  // the stage's one arrival, after all its byte counts
+        if (++stage == (uint32_t)kScanRing) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: thread c owns pixel t0 + c of each tile
+  const int c = threadIdx.x;
+  float nb = 0.0f, npt = 0.0f, nnt = 0.0f;  // the next tile's state
+  if (k0 < k1) {
+    const int4 t = tiles[k0];
+    if (c < t.y - t.x) {
+      nb = base_in[t.x + c];
+      npt = pos[t.x + c];
+      nnt = neg[t.x + c];
+    }
+  }
+  const unsigned char* st = stages;
+  for (int k = k0; k < k1; ++k) {
+    const int4 t = tiles[k];
+    const int t0 = t.x;
+    const bool own = c < t.y - t.x;
+    float b = nb;
+    const float pth = npt, nth = nnt;
+    const double dpth = pth, dnth = nth;
+    if (k + 1 < k1) {  // loads while this tile runs
+      const int4 u = tiles[k + 1];
+      if (c < u.y - u.x) {
+        nb = base_in[u.x + c];
+        npt = pos[u.x + c];
+        nnt = neg[u.x + c];
+      }
+    }
+    // each slice's offset in its granule: the pointer's at frame 0 (t0 is
+    // a multiple of 16 pixels), then moving by step per frame
+    uint32_t m_lp = plan.offset[0], m_leak = plan.offset[1], m_shot = plan.offset[2];
+    int16_t* out = count_out + t0 + c;
+    for (int f0 = 0; f0 < n_frames; f0 += kScanGroup) {
+      mbar_wait(full0 + 8 * stage, phase);
+      const unsigned char* fr = st;  // this frame's part of the stage
+#pragma unroll
+      for (int g = 0; g < kScanGroup; ++g) {
+        const int f = f0 + g;
+        if (f < n_frames) {
+          if (own) {
+            const unsigned char* s_lp = fr + plan.region[0] + m_lp + 4 * c;
+            const unsigned char* s_leak = fr + plan.region[1] + m_leak + 4 * c;
+            const unsigned char* s_shot = fr + plan.region[2] + m_shot + c;
+            float l, lk = 0.0f;
+            bool sh = false;
+            if (f >= t.z && f <= t.w) {
+              l = *reinterpret_cast<const float*>(s_lp);
+              if (kLeak) lk = *reinterpret_cast<const float*>(s_leak);
+              if (kShot) sh = *s_shot != 0;
+            } else {
+              const long long x = (long long)f * npix + t0 + c;
+              l = staged(s_lp, lp, x, plan.first[0], plan.end[0]);
+              if (kLeak) lk = staged(s_leak, leak, x, plan.first[1], plan.end[1]);
+              if (kShot) sh = staged(s_shot, shot, x, plan.first[2], plan.end[2]) != 0;
+            }
+            if (kLeak) b = b - lk;
+            *out = (int16_t)scan_step(l, b, pth, nth, dpth, dnth, kShot && sh);
+          }
+          m_lp = (m_lp + plan.step[0]) & 15u;
+          m_leak = (m_leak + plan.step[1]) & 15u;
+          m_shot = (m_shot + plan.step[2]) & 15u;
+          out += npix;
+          fr += plan.frame_bytes;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * stage);
+      st += stage_bytes;
+      if (++stage == (uint32_t)kScanRing) {
+        stage = 0;
+        phase ^= 1u;
+        st = stages;
+      }
+    }
+    if (own) base_out[t0 + c] = b;
+  }
+}
+
+typedef void (*ScanKernel)(const ScanPlan, const int4*, const float*, const float*,
+                           const uint8_t*, const float*, const float*, const float*, float*,
+                           int16_t*);
+
+}  // namespace
+
+// sizeof(ScanPlan), which the wrapper checks against its ctypes twin.
+extern "C" int v2e_scan_plan_bytes() { return (int)sizeof(ScanPlan); }
+
+// Runs K2 over the plan's frames: one launch on `stream`, no sync.  leak
+// and shot may be null (no leak, no shot noise); the plan must be made for
+// these pointers (each present stream's offset, none for an absent one) and
+// tiles is its tile table on the device.  Reads base, writes new_base and
+// counts.  Returns the CUDA error of the shared memory request or the
+// launch (never a fallback), or cudaErrorInvalidValue for a plan that does
+// not fit the kernel or the pointers.
+extern "C" int v2e_scan(const ScanPlan* plan, const int* tiles, const float* lp,
+                        const float* leak, const uint8_t* shot, const float* pos,
+                        const float* neg, const float* base, float* new_base,
+                        int16_t* counts, void* stream) {
+  const ScanPlan& p = *plan;
+  if (p.npix <= 0 || p.n_frames <= 0) return 0;
+  const void* ptrs[kScanStreams] = {lp, leak, shot};
+  bool ok = p.blocks >= 1 && p.blocks <= kScanMaxBlocks && p.tile >= 1 &&
+            p.tile <= kScanMaxTile && p.threads % 32 == 0 && p.threads >= p.tile + 32 &&
+            p.threads <= kScanMaxTile + 32 && p.frame_bytes % 16 == 0 &&
+            p.smem_bytes == kScanBarBytes + kScanRing * kScanGroup * p.frame_bytes &&
+            p.block_tiles[0] == 0 && tiles != nullptr && lp != nullptr;
+  for (int s = 0; s < kScanStreams; ++s)
+    ok = ok && (ptrs[s] != nullptr) == (p.region[s] >= 0) &&
+         (ptrs[s] == nullptr || (int)((uintptr_t)ptrs[s] & 15) == p.offset[s]);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  static const ScanKernel kernels[4] = {scan_persistent<false, false>,
+                                        scan_persistent<false, true>,
+                                        scan_persistent<true, false>, scan_persistent<true, true>};
+  const ScanKernel kern = kernels[2 * (leak != nullptr) + (shot != nullptr)];
+  const cudaError_t e = cudaFuncSetAttribute(
+      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refusal, not a sticky fault: clear it for later launches
+    return (int)e;
+  }
+  kern<<<p.blocks, p.threads, p.smem_bytes, (cudaStream_t)stream>>>(
+      p, reinterpret_cast<const int4*>(tiles), lp, leak, shot, pos, neg, base, new_base,
+      counts);
   return (int)cudaGetLastError();
 }

@@ -17,13 +17,24 @@ planes above 256K pixels to the XLA scan; this kernel has no size limit.
 K2 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_pallas, the
 core of every configuration with R <= 0.  `scan` launches its kernel (same
 source) for CUDA tensors and runs `scan_plain` for CPU tensors.  One launch
-per chunk: a thread per pixel loops over the frames with base in a
-register.  Bound by memory bytes: 11 B per pixel per frame (lp and leak
-f32, shot u8, counts i16).
+per chunk, bound by memory bytes: 11 B per pixel per frame (lp and leak
+f32, shot u8, counts i16).  Design (see the source's note): one persistent
+block per SM owns a strip of whole 16-pixel units, walked in tiles of at
+most 992 pixels with a thread per pixel and its base in a register; one
+producer thread keeps a ring of 6 stages of 4 frames each of the tile's
+lp, leak and shot in flight in shared memory with bulk copies (1-D TMA),
+so the loads of the coming frames overlap the arithmetic of this one.
+`scan_plan` decides in Python everything that says which bytes a copy
+moves (the tiles, each tile's interior frames, each stream's pointer
+offset, its step per frame and its aligned interior), and the kernel reads
+it from the plan.  tests/test_torch_scan_plan.py holds the plan on the
+CPU, beside a model of the kernel's few lines that turn it into copies.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -227,6 +238,202 @@ def scan_plain(
     return base, counts
 
 
+# K2's plan.  Strips and tiles start at multiples of UNIT_PX pixels, so
+# every tile's slice of frame 0 starts, in each stream, at that stream's
+# data pointer mod 16 bytes.  A tile has at most MAX_TILE_PX pixels, one
+# per consumer thread, beside one producer warp (1024 threads).  The ring
+# is RING stages of GROUP frames each, compile-time constants of the kernel
+# (kScanRing, kScanGroup), behind BAR_BYTES of mbarriers; it fits the
+# shared memory a block may have (SMEM_PER_BLOCK on an H100) at the largest
+# tile.  Chosen on an H100 (PERF.md): 4 frames per stage over 1, 2 and 8;
+# rings of 8 to 64 frames took the same time.
+UNIT_PX = 16
+MAX_TILE_PX = 992
+GROUP = 4
+RING = 6
+BAR_BYTES = 128
+MAX_BLOCKS = 512
+SMEM_PER_BLOCK = 232_448
+
+
+def _up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+@dataclass(frozen=True)
+class ScanPlan:
+    """K2's launch plan (see `scan_plan`); the kernel reads every field
+    (csrc/emulator_scan.cu, ScanPlan and its tile table).
+
+    tiles: (t0, t1, f_lo, f_hi) per tile, block by block: pixels [t0, t1)
+    and the interior frames [f_lo, f_hi], whose slices lie, in every
+    stream, inside the tensor's aligned interior (their copies are the
+    slices' whole granules, unclipped, and every element is staged);
+    block_tiles: blocks + 1 indices, block b running tiles block_tiles[b]
+    to block_tiles[b + 1] - 1; tile: the most pixels of a tile (a multiple
+    of UNIT_PX), one per consumer thread.  Per stream (lp, leak, shot;
+    None where absent): elem_sizes, bytes per element; offsets, the data
+    pointer mod 16; steps, how far a slice's offset in its granule moves
+    per frame; regions, the byte offset in a frame's part of a stage;
+    bounds, (lo, hi) the tensor's aligned interior in bytes from the
+    pointer's granule; staged, (first, end) the elements wholly inside it.
+    frame_bytes: a frame's part of a stage.
+    """
+
+    npix: int
+    n_frames: int
+    tiles: Tuple[Tuple[int, int, int, int], ...]
+    block_tiles: Tuple[int, ...]
+    tile: int
+    elem_sizes: Tuple[Optional[int], ...]
+    offsets: Tuple[Optional[int], ...]
+    steps: Tuple[Optional[int], ...]
+    regions: Tuple[Optional[int], ...]
+    bounds: Tuple[Optional[Tuple[int, int]], ...]
+    staged: Tuple[Optional[Tuple[int, int]], ...]
+    frame_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return len(self.block_tiles) - 1
+
+    @property
+    def threads(self) -> int:
+        return _up(self.tile, 32) + 32
+
+    @property
+    def smem_bytes(self) -> int:
+        return BAR_BYTES + RING * GROUP * self.frame_bytes
+
+    @property
+    def strips(self) -> Tuple[int, ...]:
+        """Block b owns pixels [strips[b], strips[b + 1])."""
+        return tuple(self.tiles[k][0] for k in self.block_tiles[:-1]) + (self.npix,)
+
+
+def scan_plan(
+    npix: int,
+    n_frames: int,
+    sms: int,
+    elem_sizes: Tuple[Optional[int], ...] = (4, 4, 1),
+    ptr_offsets: Tuple[Optional[int], ...] = (0, 0, 0),
+) -> ScanPlan:
+    """K2's launch plan for `n_frames` frames of `npix` pixels on a card
+    with `sms` SMs.
+
+    elem_sizes: bytes per element of lp, leak and shot, None for a stream
+    that is absent; ptr_offsets: each present stream's data pointer mod 16.
+    One block per SM (fewer for a plane of fewer 16-pixel units), each
+    owning a strip of whole units, the sizes differing by at most one
+    unit: block b starts at unit floor(b * units / blocks), so the last
+    block, whose last unit may be partial, has the most units.  A strip is
+    cut into the fewest tiles of at most MAX_TILE_PX pixels, all but its
+    last of equal size.
+    """
+    if npix < 1 or n_frames < 1 or sms < 1:
+        raise ValueError(f"scan_plan: npix {npix}, n_frames {n_frames}, sms {sms}")
+    if [e is None for e in elem_sizes] != [o is None for o in ptr_offsets] or elem_sizes[0] is None:
+        raise ValueError(f"scan_plan: streams {elem_sizes} with offsets {ptr_offsets}")
+    units = -(-npix // UNIT_PX)
+    blocks = min(sms, units, MAX_BLOCKS)
+    strips = [min(UNIT_PX * (b * units // blocks), npix) for b in range(blocks)] + [npix]
+    longest = max(b - a for a, b in zip(strips, strips[1:]))
+    tile = _up(-(-longest // -(-longest // MAX_TILE_PX)), UNIT_PX)
+    steps, regions, bounds, staged = [], [], [], []
+    off = 0
+    for e, o in zip(elem_sizes, ptr_offsets):
+        if e is None:
+            for v in (steps, regions, bounds, staged):
+                v.append(None)
+            continue
+        if not 0 <= o < 16 or o % e:
+            raise ValueError(f"scan_plan: offset {o} for {e}-byte elements")
+        steps.append(e * npix % 16)
+        regions.append(off)
+        # the granules of a slice of `tile` elements starting anywhere in one
+        off += _up(tile * e + 15, 16)
+        lo, hi = _up(o, 16), (o + e * n_frames * npix) & ~15
+        bounds.append((lo, hi))
+        staged.append((-(-(lo - o) // e), max((hi - o) // e, 0)))
+    tiles, block_tiles = [], [0]
+    for s0, s1 in zip(strips, strips[1:]):
+        for t0 in range(s0, s1, tile):
+            t1 = min(t0 + tile, s1)
+            # the frames whose slice [r, r + n) lies in [lo, hi) in every stream
+            f_lo, f_hi = 0, n_frames - 1
+            for e, o, (lo, hi) in ((e, o, b) for e, o, b in zip(elem_sizes, ptr_offsets, bounds)
+                                   if e is not None):
+                f_lo = max(f_lo, -(-(lo - o - e * t0) // (e * npix)))
+                f_hi = min(f_hi, (hi - o - e * t1) // (e * npix))
+            tiles.append((t0, t1, f_lo, f_hi))
+        block_tiles.append(len(tiles))
+    return ScanPlan(npix, n_frames, tuple(tiles), tuple(block_tiles), tile, tuple(elem_sizes),
+                    tuple(ptr_offsets), tuple(steps), tuple(regions), tuple(bounds),
+                    tuple(staged), off)
+
+
+class _CPlan(ctypes.Structure):
+    """The kernel's ScanPlan (csrc/emulator_scan.cu)."""
+
+    _fields_ = (
+        [(n, ctypes.c_longlong * 3) for n in ("lo", "hi", "first", "end")]
+        + [(n, ctypes.c_int) for n in (
+            "npix", "n_frames", "blocks", "threads", "tile", "frame_bytes", "smem_bytes")]
+        + [(n, ctypes.c_int * 3) for n in ("region", "offset", "step")]
+        + [("block_tiles", ctypes.c_int * (MAX_BLOCKS + 1))]
+    )
+
+
+def c_plan(plan: ScanPlan) -> _CPlan:
+    """The plan as the kernel takes it (absent streams: region -1, the
+    rest 0)."""
+    c = _CPlan(npix=plan.npix, n_frames=plan.n_frames, blocks=plan.blocks,
+               threads=plan.threads, tile=plan.tile, frame_bytes=plan.frame_bytes,
+               smem_bytes=plan.smem_bytes)
+    for s in range(3):
+        present = plan.elem_sizes[s] is not None
+        c.region[s] = plan.regions[s] if present else -1
+        c.offset[s] = plan.offsets[s] if present else 0
+        c.step[s] = plan.steps[s] if present else 0
+        c.lo[s], c.hi[s] = plan.bounds[s] if present else (0, 0)
+        c.first[s], c.end[s] = plan.staged[s] if present else (0, 0)
+    c.block_tiles[: plan.blocks + 1] = plan.block_tiles
+    return c
+
+
+def stream_layout(
+    lp: torch.Tensor, leak_delta: Optional[torch.Tensor], shot_any: Optional[torch.Tensor],
+) -> Tuple[Tuple[Optional[int], ...], Tuple[Optional[int], ...]]:
+    """scan_plan's elem_sizes and ptr_offsets for these inputs."""
+    ts = (lp, leak_delta, shot_any)
+    return (tuple(None if t is None else t.element_size() for t in ts),
+            tuple(None if t is None else t.data_ptr() % 16 for t in ts))
+
+
+@functools.cache
+def _device_plan(npix: int, n_frames: int, device_index: int, elem_sizes, ptr_offsets):
+    """The plan, its C struct and its tile table on the device, made once
+    for each plane, frame count, card, streams and pointer offsets: a call
+    must not spend its time planning."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    plan = scan_plan(npix, n_frames, sms, elem_sizes, ptr_offsets)
+    tiles = torch.tensor(plan.tiles, dtype=torch.int32, device=torch.device("cuda", device_index))
+    return plan, c_plan(plan), tiles
+
+
+@functools.cache
+def _scan_fn():
+    lib = build.load("emulator_scan")
+    lib.v2e_scan_plan_bytes.restype = ctypes.c_int
+    if lib.v2e_scan_plan_bytes() != ctypes.sizeof(_CPlan):
+        raise RuntimeError(f"scan: the kernel's ScanPlan is {lib.v2e_scan_plan_bytes()} "
+                           f"bytes, _CPlan {ctypes.sizeof(_CPlan)}")
+    fn = lib.v2e_scan
+    fn.argtypes = [ctypes.POINTER(_CPlan)] + [ctypes.c_void_p] * 10
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def scan(
     lp: torch.Tensor,
     leak_delta: Optional[torch.Tensor],
@@ -240,6 +447,7 @@ def scan(
     lp and leak_delta f32[F,H,W]; shot_any u8[F,H,W] (nonzero where shot
     noise fired); thresholds and base f32[H,W].  Leak and shot may be None.
     Inputs are not modified.  Returns (new_base, signed counts i16[F,H,W]).
+    A shared memory request the card refuses, or a failed launch, raises.
     """
     scan.last_call = tuple(lp.shape)
     if not lp.is_cuda:
@@ -255,23 +463,27 @@ def scan(
     for name, t in (("pos_thres", pos_thres), ("neg_thres", neg_thres), ("base", base)):
         _check(name, t, f32, (H, W), dev)
 
-    new_base = base.clone()
     counts = torch.empty((F, H, W), dtype=torch.int16, device=dev)
-    fn = build.load("emulator_scan").v2e_scan
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    if F == 0 or H * W == 0:
+        return base.clone(), counts
+    plan, cplan, tiles = _device_plan(
+        H * W, F, dev.index, *stream_layout(lp, leak_delta, shot_any))
+    new_base = torch.empty_like(base)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            _ptr(lp), _ptr(leak_delta), _ptr(shot_any), _ptr(pos_thres),
-            _ptr(neg_thres), _ptr(new_base), _ptr(counts), F, H * W,
-            ctypes.c_void_p(stream),
+        err = _scan_fn()(
+            ctypes.byref(cplan), tiles.data_ptr(), lp.data_ptr(),
+            _ptr(leak_delta), _ptr(shot_any), pos_thres.data_ptr(), neg_thres.data_ptr(),
+            base.data_ptr(), new_base.data_ptr(), counts.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "scan")
     scan.launches += 1
+    scan.last_plan = plan
     return new_base, counts
 
 
-# kernel launches made by `scan` (one per chunk), and the last call's [F,H,W]
+# kernel launches made by `scan` (one per chunk), the last call's [F,H,W]
+# and the last launch's plan
 scan.launches = 0
 scan.last_call = None
+scan.last_plan = None
