@@ -34,13 +34,26 @@ Phases, each printed on its own line with its seconds:
           after the first): K2 and K3;
        C. run B's flags and --unet_conv packedz: K2, K3 and K5 (the UNets'
           up4 and up5 conv pairs), with run B's random weights;
+       D. run B's flags and --scidvs: K3 only (SciDVS never reaches K1 or
+          K2: its core is a plain loop over the frames);
+       E. run B's flags and the center-surround pixel (--cs_lambda_pixels 2
+          --cs_tau_p_ms 3), the probe at (173,130) and every state video
+          (--show_dvs_model_state all --save_dvs_model_state): the
+          per-frame path, K3 only; one probe sample per emulated frame in
+          pixel-states.dat and 8 non-empty state videos;
      each with the kernels' launch counters set to 0 before and read after,
      and its outputs checked (AEDAT-2 payload of 8 B per event, event times
      inside the input's span, non-empty videos in run A); then run A once
      more under torch.profiler for its device time (not counted); and runs
      A, B, B with --unet_conv packedz and B with --unet_conv packedfold45
      at 64x96 with the golden weights on the card and on the CPU, which
-     must agree;
+     must agree; then the emulator's variants: SciDVS, CSDVS exact and
+     Euler and the per-frame path at 64x96 on the card against the CPU
+     from one set of draws (the tolerances of tests/test_torch_variants.py),
+     the SciDVS chunk and the per-frame path timed at 346x260 with the
+     CSDVS surround's share, and a save, load and continue of
+     EventEmulator at 346x260 (noisy, R = 0.5 ms: K1; and SciDVS) equal to
+     the continuous run bit for bit;
   7. K2 (refractory-free scan) against its plain version at the shape run B
      launched it with (96 frames of 260x346), with the noisy preset's leak
      and shot noise, again at 96 frames of 720x1280 and in the clean form
@@ -68,7 +81,8 @@ Phases, each printed on its own line with its seconds:
      packedfold45 and fold: time and max abs difference from dense, and
      the device kernels of one dense and one fold45 forward, printed only.
 
-Then one JSON line with every kernel's numbers, the nvidia-smi line again,
+Then a JSON line of the variant phases' numbers, one JSON line with every
+kernel's numbers, the nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when CUDA is unavailable, a kernel does not build or disagrees, or any
 check fails.
@@ -566,13 +580,18 @@ def phase_cli(torch, np, tmp, counters):
               "--skip_video_output", "--dvs_aedat2", "b.aedat"],
     }
     runs["C"] = runs["B"][:-1] + ["c.aedat", "--unet_conv", "packedz"]
+    runs["D"] = runs["B"][:-1] + ["d.aedat", "--scidvs"]
+    runs["E"] = runs["B"][:-1] + ["e.aedat"] + VARIANT_E
     want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp"),
-            "C": ("scan", "bilinear_warp", "conv3x3_lane")}
+            "C": ("scan", "bilinear_warp", "conv3x3_lane"), "D": ("bilinear_warp",),
+            "E": ("bilinear_warp",)}
     walls, events = {}, {}
     absent = {"A": ("bilinear_warp", "scan", "conv3x3_lane"),
               "B": ("warp_tiled", "refractory_scan", "conv3x3_lane"),
-              "C": ("warp_tiled", "refractory_scan")}
-    launches, shapes = {}, {}
+              "C": ("warp_tiled", "refractory_scan"),
+              "D": ("warp_tiled", "refractory_scan", "scan", "conv3x3_lane"),
+              "E": ("warp_tiled", "refractory_scan", "scan", "conv3x3_lane")}
+    launches, shapes, n_frames = {}, {}, {}
     for name, flags in runs.items():
         out = os.path.join(tmp, "out" + name)
         argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
@@ -593,6 +612,7 @@ def phase_cli(torch, np, tmp, counters):
             shapes[name]["conv3x3_lane"] = dict(conv3x3_lane.shapes)
         walls[name] = wall
         events[name] = stats.num_events
+        n_frames[name] = stats.n_frames
         aedat = os.path.join(out, name.lower() + ".aedat")
         payload = read_aedat2(aedat)
         # the sink drops leading events whose first byte would be '#' (a
@@ -614,7 +634,9 @@ def phase_cli(torch, np, tmp, counters):
         if name == "A" and (min(stats.upsampling) <= 32 or stats.fused_chunks):
             raise AssertionError(f"run A: U {stats.upsampling}, {stats.fused_chunks} fused "
                                  "chunks; wants U > 32 and every chunk staged")
-        if name in "BC" and (set(stats.upsampling) != {RUN_B_U} or not stats.fused_chunks):
+        if name == "E":
+            check_run_e(np, out, stats)
+        if name in "BCDE" and (set(stats.upsampling) != {RUN_B_U} or not stats.fused_chunks):
             raise AssertionError(f"run {name}: U {stats.upsampling}, {stats.fused_chunks} "
                                  "fused chunks; wants U = 12 and fused chunks")
         bad = [k for k in want[name] if not launches[name][k]]
@@ -628,6 +650,10 @@ def phase_cli(torch, np, tmp, counters):
             f"{payload} B ({dropped} leading events dropped by the '#' guard); "
             f"wall {wall:.2f} s, realtime factor "
             f"{stats.realtime_factor:.4f} (cli {stats.wall_s:.2f} s)")
+    log(f"[cli] run D (SciDVS): events D {events['D']} vs B {events['B']}; run E "
+        f"(CSDVS, probe, 8 state videos): {walls['E'] / n_frames['E'] * 1e3:.3f} ms of CLI "
+        f"wall per interpolated frame (SloMo, the per-frame path and the state videos' "
+        f"encoding), run B {walls['B'] / n_frames['B'] * 1e3:.3f} ms")
     k5 = shapes["C"]["conv3x3_lane"]
     log("[cli] run C: K5 launches by ((N,H,W,Ci), Co): "
         + "; ".join(f"{k} x{v}" for k, v in sorted(k5.items()))
@@ -638,6 +664,227 @@ def phase_cli(torch, np, tmp, counters):
     profile_device(torch, "cli-profile", lambda: cli.run(argv + runs["A"], device="cuda"),
                    walls["A"] * 1e3, "run A again", top=8)
     return launches, shapes
+
+
+# run E's variant flags: the center-surround pixel, the probe at the
+# sensor's centre and every model-state video
+PROBE = (173, 130)
+VARIANT_E = ["--cs_lambda_pixels", "2", "--cs_tau_p_ms", "3",
+             "--record_single_pixel_states", f"({PROBE[0]},{PROBE[1]})",
+             "--show_dvs_model_state", "all", "--save_dvs_model_state"]
+RUN_E_STATES = ("new_frame", "log_new_frame", "lp_log_frame", "photoreceptor_noise_arr",
+                "cs_surround_frame", "c_minus_s_frame", "base_log_frame", "diff_frame")
+
+
+def check_run_e(np, out, stats):
+    """Run E's probe record holds one sample per emulated frame (every
+    interpolated frame but the first, which initializes the emulator), and
+    every state video of a CSDVS pixel is there and not empty."""
+    import pickle
+
+    with open(os.path.join(out, "pixel-states.dat"), "rb") as f:
+        rec = pickle.load(f)
+    n = int(np.isfinite(rec["time"]).sum())
+    if n != stats.n_frames - 1 or not np.isfinite(rec["diff_frame"][:n]).all():
+        raise AssertionError(f"run E: {n} probe samples for {stats.n_frames} frames")
+    sizes = {name: os.path.getsize(os.path.join(out, name + ".avi")) for name in RUN_E_STATES}
+    if min(sizes.values()) <= 0:
+        raise AssertionError(f"run E: state videos {sizes}")
+    log(f"[cli] run E: pixel-states.dat {n} samples at {PROBE}; state videos "
+        + ", ".join(f"{k} {v} B" for k, v in sizes.items()))
+
+
+def variant_chunk(torch, dev, cfg, F, h, w, seed=6):
+    """F frames of h x w (the moving-bar frames of refr_inputs as linear
+    0-255 intensity, run B's frame interval), the emulator's params and
+    state from frame 0, and the chunk's draws, for `cfg`."""
+    from v2e_tpu_torch.emulator.core import draw_chunk_noise
+    from v2e_tpu_torch.emulator.state import init_state
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    yy = torch.arange(h, device=dev, dtype=f32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=f32)[None, :]
+    tt = torch.arange(F + 1, device=dev, dtype=f32)[:, None, None]
+    bar = (torch.remainder(xx + 0.5 * yy - 3.0 * tt, 96.0) < 10.0).to(f32)
+    frames = torch.round(torch.clamp(
+        90 + 40 * torch.sin((xx + 0.2 * tt) / 17.0) * torch.cos(yy / 13.0) + 110 * bar
+        + 2 * torch.randn((F + 1, h, w), generator=g, device=dev), 0, 255))
+    params, state = init_state(cfg, frames[0], 0.0, g)
+    times = torch.arange(1, F + 1, device=dev, dtype=f32) / (SRC_FPS * RUN_B_U)
+    return params, state, frames[1:], times, draw_chunk_noise(cfg, F, (h, w), g, dev)
+
+
+def variant_configs():
+    """The configurations the variant phases run: run D's and run E's
+    emulators (the noisy preset with SciDVS, and with CSDVS, the probe and
+    every state), CSDVS with the Euler solver, and SciDVS and the plain
+    pixel at R = 0.5 ms."""
+    import dataclasses
+
+    from v2e_tpu_torch.emulator.config import EmulatorConfig
+    from v2e_tpu_torch.emulator.emulator import MODEL_STATES
+
+    noisy = EmulatorConfig.noisy()
+    csdvs = dataclasses.replace(noisy, cs_lambda_pixels=2.0, cs_tau_p_ms=3.0)
+    return {
+        "scidvs": dataclasses.replace(noisy, scidvs=True),
+        "scidvs R=0.5ms": dataclasses.replace(noisy, scidvs=True, refractory_period_s=5e-4),
+        "csdvs+probe+states": dataclasses.replace(
+            csdvs, probe=(PROBE[0] * 96 // W, PROBE[1] * 64 // H),
+            emit_states=tuple(MODEL_STATES)),
+        "csdvs euler": dataclasses.replace(csdvs, csdvs_solver="euler"),
+        "per-frame R=0.5ms": dataclasses.replace(
+            noisy, refractory_period_s=5e-4, probe=(3, 4), emit_states=("diff_frame",)),
+    }
+
+
+# tolerances of tests/test_torch_variants.py (the port against v2e_tpu on
+# the CPU), held here between the card and the CPU
+COUNT_SHARE = 1e-3
+ATOL_SCIDVS = 1e-6
+ATOL_STATES = 1e-5
+ATOL_CS_EULER = 2e-6
+
+
+def phase_variants_small(torch, np, dev):
+    """The variant paths at 64x96 on the card and on the CPU, from one set
+    of inputs and draws made on the CPU: counts, i0, K and stride equal at
+    >= 99.9 % of pixel-frames; the SciDVS highpass and base within 1e-6;
+    the probe, every state frame and the final state within 1e-5 (the Euler
+    surround within 2e-6)."""
+    import dataclasses
+
+    from v2e_tpu_torch.emulator.core import emulate_chunk_apply
+
+    def moved(obj, d):
+        return dataclasses.replace(obj, **{
+            f.name: getattr(obj, f.name).to(d) for f in dataclasses.fields(obj)
+            if getattr(obj, f.name) is not None})
+
+    h, w, F = 64, 96, 24
+    cpu = torch.device("cpu")
+    for name, cfg in variant_configs().items():
+        params, state, frames, times, draws = variant_chunk(torch, cpu, cfg, F, h, w)
+        (gn, go), (cn, co) = (emulate_chunk_apply(
+            cfg, moved(params, d), moved(state, d), frames.to(d), times.to(d),
+            {k: (None if v is None else v.to(d)) for k, v in draws.items()}) for d in (dev, cpu))
+        shares = {k: float((go[k].cpu() != co[k]).float().mean())
+                  for k in ("ev_count", "i0", "K", "stride")}
+        errs = {}
+        for f in ("base_log_frame", "scidvs_highpass", "cs_surround_frame"):
+            if getattr(cn, f) is not None:
+                errs[f] = float((getattr(gn, f).cpu() - getattr(cn, f)).abs().max())
+        for k, v in go.get("states", {}).items():
+            errs["state " + k] = float((v.cpu() - co["states"][k]).abs().max())
+        if "probe" in go:
+            errs["probe"] = float((go["probe"].cpu() - co["probe"]).abs().max())
+        limit = {"base_log_frame": ATOL_SCIDVS if cfg.scidvs else ATOL_STATES,
+                 "scidvs_highpass": ATOL_SCIDVS,
+                 "cs_surround_frame": ATOL_CS_EULER if cfg.csdvs_solver == "euler"
+                 else ATOL_STATES}
+        bad = [k for k, v in shares.items() if v > COUNT_SHARE]
+        bad += [k for k, v in errs.items() if not v <= limit.get(k, ATOL_STATES)]
+        n_ev = int(co["ev_count"].abs().sum())
+        if bad or n_ev == 0:
+            raise AssertionError(f"[variants-small] {name}: card vs CPU {bad}: shares "
+                                 f"{shares}, errors {errs}, {n_ev} events")
+        log(f"[variants-small] {name} at {h}x{w}, F={F}: card vs CPU counts differ at "
+            f"{shares['ev_count']:.4%} of pixel-frames ({n_ev} events on the CPU); max abs "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+
+
+def phase_variants_time(torch, dev, F=96):
+    """At 346x260 on the card: the SciDVS chunk (run D's emulator, F frames
+    at run B's frame interval) and the per-frame path (run E's emulator)
+    timed through emulate_chunk_apply, the per-frame path's ms per frame,
+    and the CSDVS surround update's share of it; then one per-frame chunk
+    under the profiler.  Returns the numbers."""
+    import dataclasses
+
+    from v2e_tpu_torch.emulator import core
+
+    cfgs = variant_configs()
+    out = {}
+    for name, key, n in (("scidvs", "scidvs", F), ("per-frame", "csdvs+probe+states", F // 4)):
+        cfg = cfgs[key]
+        if name == "per-frame":
+            cfg = dataclasses.replace(cfg, probe=PROBE)
+        params, state, frames, times, draws = variant_chunk(torch, dev, cfg, n, H, W)
+
+        def run():
+            return core.emulate_chunk_apply(cfg, params, state, frames, times, draws)
+
+        ms = sorted(time_ms(torch, run, reps=2) for _ in range(3))[1]
+        out[name] = {"frames": n, "chunk_ms": ms, "ms_per_frame": ms / n}
+        if name == "per-frame":
+            lp, sur = state.lp_log_frame, state.cs_surround_frame
+            dt = times[0] - state.t_prev
+            dct_ms = time_ms(torch, lambda: core._update_csdvs(cfg, lp, sur, dt), reps=20)
+            out[name]["csdvs_update_ms"] = dct_ms
+            out[name]["csdvs_share"] = dct_ms / (ms / n)
+            profile_device(torch, "variants-time", run, ms,
+                           f"one per-frame chunk of {n} frames", top=8)
+    sci, pf = out["scidvs"], out["per-frame"]
+    log(f"[variants-time] at {W}x{H}: SciDVS chunk of {sci['frames']} frames "
+        f"{sci['chunk_ms']:.3f} ms ({sci['ms_per_frame']:.4f} ms/frame, plain loop); "
+        f"per-frame path (CSDVS exact, probe, 9 states) {pf['ms_per_frame']:.4f} ms/frame "
+        f"over {pf['frames']} frames, of which the CSDVS surround update (two float64 "
+        f"DCT pairs) {pf['csdvs_update_ms']:.4f} ms ({pf['csdvs_share']:.1%})")
+    return out
+
+
+def phase_resume(torch, np, dev, counters):
+    """EventEmulator at 346x260 under the noisy preset with R = 0.5 ms (K1)
+    and again with SciDVS (no kernel): run chunk 1, save, run chunk 2; load
+    the checkpoint into a new emulator and run chunk 2 there.  The resumed
+    events, counters and state equal the continuous run's bit for bit; K1
+    launches in the plain case and in no SciDVS run."""
+    import dataclasses
+
+    from v2e_tpu_torch.emulator import EventEmulator
+    from v2e_tpu_torch.synthetic import make_source_frames
+
+    n1, n2 = 49, 48
+    src = make_source_frames(n1 + n2, H, W, seed=2).astype(np.float32)
+    times = np.arange(n1 + n2) / (SRC_FPS * RUN_B_U)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in (("refractory", {}), ("scidvs", {"scidvs": True})):
+            for fn in counters.values():
+                fn.launches = 0
+            ems = []
+            for _ in range(2):
+                em = EventEmulator(seed=3, device=dev, **kw)
+                em.set_dvs_params("noisy")
+                em.cfg = dataclasses.replace(em.cfg, refractory_period_s=5e-4)
+                ems.append(em)
+            cont, resumed = ems
+            ckpt = os.path.join(tmp, name + ".npz")
+            first = cont.generate_events_batch(src[:n1], times[:n1])
+            cont.save_state(ckpt)
+            want = cont.generate_events_batch(src[n1:], times[n1:])
+            resumed.load_state(ckpt)
+            got = resumed.generate_events_batch(src[n1:], times[n1:])
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            same = (got is not None and want is not None and got.shape == want.shape
+                    and np.array_equal(got, want)
+                    and (resumed.num_events_on, resumed.num_events_off)
+                    == (cont.num_events_on, cont.num_events_off)
+                    and all(torch.equal(getattr(resumed.state, f.name), getattr(cont.state, f.name))
+                            for f in dataclasses.fields(cont.state)
+                            if getattr(cont.state, f.name) is not None))
+            k1 = launches["refractory_scan"]
+            other = sum(v for k, v in launches.items() if k != "refractory_scan")
+            if not same or other or (k1 == 0) == (not kw) or first is None:
+                raise AssertionError(f"[resume] {name}: resumed == continuous {same}, "
+                                     f"launches {launches}")
+            res[name] = {"events": int(len(want)), "k1_launches": k1}
+            log(f"[resume] {name} at {W}x{H}: chunk 1 {n1} frames, saved, chunk 2 {n2} "
+                f"frames: {len(want)} events resumed == continuous bit for bit (events, "
+                f"counters, state); launches {launches}")
+    return res
 
 
 def phase_cli_small(torch, np, tmp):
@@ -1019,6 +1266,17 @@ def main() -> int:
         log(f"[cli-small] {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
+    phase_variants_small(torch, np, dev)
+    log(f"[variants-small] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    variants = phase_variants_time(torch, dev)
+    log(f"[variants-time] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    resume = phase_resume(torch, np, dev, counters)
+    k1["resume_launches"] = resume["refractory"]["k1_launches"]
+    log(f"[resume] {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
     k1["run_a"] = phase_k1_run_a(torch, cli_shapes["A"]["refractory_scan"], cli_shapes["A"]["U"],
                                  cli_launches["A"]["refractory_scan"])
     log(f"[k1] run A shape {time.perf_counter() - t:.2f} s")
@@ -1040,6 +1298,8 @@ def main() -> int:
     log(f"[unet-forms] {time.perf_counter() - t:.2f} s")
 
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
+    log("[variants] " + json.dumps({"variants": variants, "resume": resume,
+                                    "run_launches": {k: cli_launches[k] for k in "DE"}}))
     log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """The port's CLI (v2e_tpu_torch.cli) on the CPU: its video and AEDAT-2
 outputs, the flags it turns away with a non-zero exit (each names the
-ROADMAP item that will port its path), and its import boundary (no jax, no
-v2e_tpu).  test_torch_cli.py holds the CLI against the JAX package's.
+ROADMAP item that will port its path), the emulator-variant flags it
+runs, and its import boundary (no jax, no v2e_tpu).  test_torch_cli.py
+holds the CLI against the JAX package's.
 """
 import logging
 import os
@@ -55,11 +56,6 @@ def test_cli_writes_videos_and_aedat(frames_dir, tmp_path):
     ["--dvs_aedat4", "ev.aedat4"],
     ["--ddd_output"],
     ["--synthetic_input", "scripts.moving_dot"],
-    ["--scidvs"],
-    ["--cs_lambda_pixels", "2"],
-    ["--save_dvs_model_state"],
-    ["--checkpoint_state", "s.npz"],
-    ["--resume_state", "s.npz"],
     ["--slomo_use_saved"],
     ["--slomo_stats_plot"],
     ["--devices", "2"],
@@ -71,6 +67,36 @@ def test_rejected_flags_exit_nonzero(frames_dir, tmp_path, caplog, flags):
     assert rc == 2
     assert "ROADMAP" in caplog.text and flags[0] in caplog.text
     assert not (tmp_path / "out").exists()
+
+
+def ran_and_wrote(out, names):
+    return all(os.path.getsize(out / n) > 0 for n in names)
+
+
+@pytest.mark.parametrize("flags,outputs", [
+    (["--scidvs"], ["ev.txt"]),
+    (["--cs_lambda_pixels", "2"], ["ev.txt"]),
+    (["--save_dvs_model_state", "--show_dvs_model_state", "diff_frame"],
+     ["ev.txt", "diff_frame.avi"]),
+    (["--checkpoint_state", "{tmp}/s.npz"], ["ev.txt", "{tmp}/s.npz"]),
+    (["--resume_state", "{tmp}/first.npz"], ["ev.txt"]),
+], ids=["scidvs", "cs_lambda_pixels", "save_dvs_model_state", "checkpoint_state",
+        "resume_state"])
+def test_ported_variant_flags_run(frames_dir, tmp_path, flags, outputs):
+    """The emulator-variant flags the port runs: each exits 0 and writes its
+    output (the events, the state video, the checkpoint).  A resume needs a
+    checkpoint whose last frame time is 0, as the conversion's frame times
+    start at 0: one of the first frame alone."""
+    base = ["-i", frames_dir, "--input_frame_rate", "30", "--disable_slomo",
+            "--skip_video_output", "--dvs_text", "ev.txt"]
+    assert cli.main(base + ["-o", str(tmp_path / "first"), "--stop_time", "0.04",
+                            "--checkpoint_state", str(tmp_path / "first.npz")],
+                    device="cpu") == 0
+    out = tmp_path / "out"
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    assert cli.main(base + ["-o", str(out)] + flags, device="cpu") == 0
+    assert ran_and_wrote(out, [o.replace("{tmp}", str(tmp_path)) for o in outputs])
+    assert len(np.loadtxt(out / "ev.txt", comments="#").reshape(-1, 4)) > 100
 
 
 def test_tpu_layout_unet_forms_run_dense(frames_dir, tmp_path, caplog):

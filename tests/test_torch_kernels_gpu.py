@@ -12,7 +12,9 @@ within 1e-5 (float32 sums in another order, inputs of unit scale: measured
 zero where the two float32 sums' own rounding exceeds an ulp (measured up
 to 4e-6 at values near 1e-4), with at most 0.5 % of the elements differing
 (measured 0.06 % at up4), against the plain version run with cuDNN's TF32
-off.
+off.  The emulator's variant paths (SciDVS, CSDVS, the per-frame path)
+have no kernel: they are held card against CPU at the tolerances of
+test_torch_variants.py, and a checkpoint's resume on the card bit for bit.
 """
 import pytest
 import torch
@@ -336,3 +338,125 @@ def test_conv3x3_wrapper_checks_its_inputs(cuda):
     ):
         with pytest.raises(ValueError):
             conv3x3_lane(*bad)
+
+
+# ---- the emulator's variant paths on the card (no kernel of their own) ----
+
+def variant_configs():
+    """SciDVS (fast path, plain loop), CSDVS exact and Euler with the probe
+    and every state (per-frame path) and the plain pixel's per-frame path,
+    all under the noisy preset."""
+    import dataclasses
+
+    from v2e_tpu_torch.emulator.config import EmulatorConfig
+    from v2e_tpu_torch.emulator.emulator import MODEL_STATES
+
+    noisy = EmulatorConfig.noisy()
+    csdvs = dataclasses.replace(noisy, cs_lambda_pixels=2.0, cs_tau_p_ms=3.0,
+                                probe=(48, 32), emit_states=tuple(MODEL_STATES))
+    return {
+        "scidvs": dataclasses.replace(noisy, scidvs=True, refractory_period_s=5e-4),
+        "csdvs": csdvs,
+        "csdvs_euler": dataclasses.replace(csdvs, csdvs_solver="euler"),
+        "per_frame": dataclasses.replace(noisy, refractory_period_s=5e-4, probe=(3, 4),
+                                         emit_states=("diff_frame",)),
+    }
+
+
+def variant_inputs(cfg, F=24, h=64, w=96, seed=6):
+    """A moving bar over a texture (linear 0-255) at 1/360 s, the params
+    and state from its first frame and the chunk's draws, on the CPU."""
+    from v2e_tpu_torch.emulator.core import draw_chunk_noise
+    from v2e_tpu_torch.emulator.state import init_state
+
+    g = torch.Generator().manual_seed(seed)
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None, :]
+    tt = torch.arange(F + 1, dtype=torch.float32)[:, None, None]
+    bar = (torch.remainder(xx + 0.5 * yy - 3.0 * tt, 96.0) < 10.0).float()
+    frames = torch.round(torch.clamp(
+        90 + 40 * torch.sin((xx + 0.2 * tt) / 17.0) * torch.cos(yy / 13.0) + 110 * bar
+        + 2 * torch.randn((F + 1, h, w), generator=g), 0, 255))
+    params, state = init_state(cfg, frames[0], 0.0, g)
+    times = torch.arange(1, F + 1, dtype=torch.float32) / 360.0
+    return params, state, frames[1:], times, draw_chunk_noise(cfg, F, (h, w), g, "cpu")
+
+
+def moved(obj, dev):
+    import dataclasses
+
+    return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(dev)
+                                       for f in dataclasses.fields(obj)
+                                       if getattr(obj, f.name) is not None})
+
+
+@pytest.mark.parametrize("name", ["scidvs", "csdvs", "csdvs_euler", "per_frame"])
+def test_variant_paths_on_card_match_cpu(cuda, name):
+    """The card against the CPU on one set of inputs and draws, at the
+    tolerances of test_torch_variants.py (the port against v2e_tpu):
+    counts, i0, K, stride equal at >= 99.9 % of pixel-frames; SciDVS
+    highpass and base within 1e-6; the Euler surround within 2e-6; the
+    probe, the state frames and the rest of the state within 1e-5.  Neither
+    K1 nor K2 is launched."""
+    from v2e_tpu_torch.emulator.core import emulate_chunk_apply
+
+    cfg = variant_configs()[name]
+    params, state, frames, times, draws = variant_inputs(cfg)
+    launches = (refractory_scan.launches, scan.launches)
+    (gn, go), (cn, co) = (emulate_chunk_apply(
+        cfg, moved(params, d), moved(state, d), frames.to(d), times.to(d),
+        {k: (None if v is None else v.to(d)) for k, v in draws.items()})
+        for d in (cuda, torch.device("cpu")))
+    torch.cuda.synchronize()
+    assert (refractory_scan.launches, scan.launches) == launches
+    assert int(co["ev_count"].abs().sum()) > 1000
+    for key in ("ev_count", "i0", "K", "stride"):
+        assert float((go[key].cpu() != co[key]).float().mean()) <= 1e-3, key
+    tol = {"scidvs_highpass": 1e-6, "base_log_frame": 1e-6 if cfg.scidvs else 1e-5,
+           "cs_surround_frame": 2e-6 if cfg.csdvs_solver == "euler" else 1e-5}
+    for key in ("base_log_frame", "lp_log_frame", "scidvs_highpass", "cs_surround_frame"):
+        if getattr(cn, key) is not None:
+            err = float((getattr(gn, key).cpu() - getattr(cn, key)).abs().max())
+            assert err <= tol.get(key, 1e-5), (key, err)
+    for key, stack in go.get("states", {}).items():
+        assert float((stack.cpu() - co["states"][key]).abs().max()) <= 1e-5, key
+    if "probe" in go:
+        assert float((go["probe"].cpu() - co["probe"]).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", [{}, {"scidvs": True}], ids=["refractory", "scidvs"])
+def test_resume_on_card_equals_continuous_run(cuda, tmp_path, variant):
+    """Save after chunk 1, load into a new emulator, run chunk 2: the events,
+    counters and state equal the continuous run's bit for bit on the card
+    (the CUDA generator's seed and offset travel in the checkpoint); K1
+    runs under the noisy preset at R = 0.5 ms, and not under SciDVS."""
+    import dataclasses
+
+    import numpy as np
+
+    from v2e_tpu_torch.emulator import EventEmulator
+    from v2e_tpu_torch.synthetic import make_source_frames
+
+    src = make_source_frames(33, 64, 96, seed=2).astype(np.float32)
+    times = np.arange(33) / 360.0
+    ems = []
+    for _ in range(2):
+        em = EventEmulator(seed=3, device="cuda", **variant)
+        em.set_dvs_params("noisy")
+        em.cfg = dataclasses.replace(em.cfg, refractory_period_s=5e-4)
+        ems.append(em)
+    cont, resumed = ems
+    k1 = refractory_scan.launches
+    cont.generate_events_batch(src[:17], times[:17])
+    cont.save_state(str(tmp_path / "c.npz"))
+    want = cont.generate_events_batch(src[17:], times[17:])
+    resumed.load_state(str(tmp_path / "c.npz"))
+    got = resumed.generate_events_batch(src[17:], times[17:])
+    assert want is not None and len(want) > 100
+    np.testing.assert_array_equal(got, want)
+    assert (resumed.num_events_on, resumed.num_events_off) == (
+        cont.num_events_on, cont.num_events_off)
+    for f in dataclasses.fields(cont.state):
+        if getattr(cont.state, f.name) is not None:
+            assert torch.equal(getattr(resumed.state, f.name), getattr(cont.state, f.name))
+    assert (refractory_scan.launches > k1) == (not variant)

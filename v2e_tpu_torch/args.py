@@ -333,7 +333,6 @@ def v2e_check_dvs_exposure_args(args):
 # turns away
 _SINKS = "sinks and readers"
 _SLOMO = "SloMo rest"
-_VARIANTS = "emulator variants"
 _SYNTHETIC = "synthetic inputs"
 _PARALLEL = "parallel (multi-GPU)"
 
@@ -345,15 +344,6 @@ _NOT_PORTED = (
     ("--slomo_use_saved", lambda a: a.slomo_use_saved, _SLOMO),
     ("--slomo_stats_plot", lambda a: a.slomo_stats_plot, _SLOMO + " (needs matplotlib)"),
     ("--synthetic_input", lambda a: a.synthetic_input is not None, _SYNTHETIC),
-    ("--scidvs", lambda a: a.scidvs, _VARIANTS),
-    ("--cs_lambda_pixels", lambda a: a.cs_lambda_pixels is not None, _VARIANTS),
-    ("--cs_tau_p_ms", lambda a: a.cs_tau_p_ms is not None, _VARIANTS),
-    ("--show_dvs_model_state", lambda a: a.show_dvs_model_state is not None, _VARIANTS),
-    ("--save_dvs_model_state", lambda a: a.save_dvs_model_state, _VARIANTS),
-    ("--record_single_pixel_states", lambda a: a.record_single_pixel_states is not None,
-     _VARIANTS),
-    ("--checkpoint_state", lambda a: a.checkpoint_state is not None, _VARIANTS),
-    ("--resume_state", lambda a: a.resume_state is not None, _VARIANTS),
     ("--devices", lambda a: a.devices != 1, _PARALLEL),
     ("--parallel_mode", lambda a: a.parallel_mode != "pixel", _PARALLEL),
     ("--segment_warmup", lambda a: a.segment_warmup != 8, _PARALLEL),

@@ -8,7 +8,10 @@ are read with cv2 (an image folder needs --input_frame_rate), cropped,
 resized and converted to luma, then either interpolated with SuperSloMo
 and emulated chunk by chunk (models/pipeline.py), or with --disable_slomo
 fed straight to the emulator (`_run_direct`).  Events go to the AEDAT-2
-and text sinks and the DVS video renderer.
+and text sinks and the DVS video renderer; the pixel variants (--scidvs,
+--cs_lambda_pixels), the single-pixel probe and the model-state videos go
+to the emulator, and --resume_state / --checkpoint_state load the
+emulator's state before the conversion and save it after.
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the plain PyTorch
 versions of the kernels on the CPU (the tests do).  Flags whose path is not
@@ -171,9 +174,17 @@ def _make_emulator(args, output_folder, output_width, output_height, device) -> 
         label_signal_noise=args.label_signal_noise,
         shuffle_events_within_iteration=not args.no_shuffle,
         compaction_capacity_hint=args.compaction_capacity,
+        scidvs=args.scidvs,
+        cs_lambda_pixels=args.cs_lambda_pixels,
+        cs_tau_p_ms=args.cs_tau_p_ms,
+        show_dvs_model_state=args.show_dvs_model_state,
+        save_dvs_model_state=args.save_dvs_model_state,
+        record_single_pixel_states=args.record_single_pixel_states,
     )
     if args.dvs_params is not None:
         em.set_dvs_params(args.dvs_params)
+    if args.resume_state:
+        em.load_state(args.resume_state)
     return em
 
 
@@ -193,6 +204,11 @@ def _make_renderer(args, output_folder, exposure) -> Optional[EventRenderer]:
 
 
 def _finish(args, emulator, renderer, stats: Stats) -> Stats:
+    if args.checkpoint_state:
+        try:
+            emulator.save_state(args.checkpoint_state)
+        except RuntimeError as e:
+            logger.warning(f"could not checkpoint emulator state: {e}")
     emulator.cleanup()
     if renderer is not None:
         renderer.cleanup()

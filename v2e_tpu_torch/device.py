@@ -1,6 +1,7 @@
 """Device selection for the port's entry points."""
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -27,5 +28,13 @@ def scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     Elementwise ops take their scalar operands through this: PyTorch's CUDA
     division turns a division by a Python scalar into a multiplication by
     its reciprocal, which rounds differently from the reference's division.
+    The tensor is made once per value and device and shared, so callers
+    must not write to it: making one on a CUDA device copies from the host
+    and waits for the stream, which would stall a loop over frames.
     """
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    return _scalar(float(value), like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar(value: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.float32, device=device)

@@ -4,12 +4,15 @@ v2e_tpu/emulator/config.py).
 The JAX package's `use_pallas_scan` switch has no counterpart: the
 sequential core runs its kernel (K1, or K2 when the refractory period is
 0) whenever its tensors are on a CUDA device and the kernel's plain version
-when they are on the CPU.  The center-surround
-(CSDVS) and SciDVS pixels are not ported yet and have no fields here.
+when they are on the CPU, except for the SciDVS pixel, whose core is a
+plain loop (core.py), as the JAX package sends it to its XLA scan.
+`pad_rows` (the multi-device padding) belongs to the parallel path and is
+not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +44,45 @@ class EmulatorConfig:
     # treat input as log-encoded HDR floating-point gray (skip lin-log)
     hdr: bool = False
 
+    # SciDVS adaptive-photoreceptor pixel
+    scidvs: bool = False
+    scidvs_gain: float = 2.0
+    scidvs_tau_s: float = 0.01
+    scidvs_tau_cov: float = 0.5
+
+    # center-surround DVS (diffuser network); None disables
+    cs_lambda_pixels: Optional[float] = None
+    cs_tau_p_ms: Optional[float] = None
+    # "exact": the closed-form transient in the DCT-II basis; "euler": the
+    # capped Euler stepping, kept for cross-validation
+    csdvs_solver: str = "exact"
+
     # seed of the emulator's torch.Generator; 0 means fresh entropy
     seed: int = 0
+
+    # record one pixel's internal states per frame, (x, y)
+    probe: Optional[tuple] = None
+    # names of the state frames each step returns (emulator.MODEL_STATES)
+    emit_states: tuple = ()
+
+    @property
+    def csdvs_enabled(self) -> bool:
+        return self.cs_lambda_pixels is not None
+
+    @property
+    def cs_tau_h_ms(self) -> float:
+        """Surround (horizontal-cell) time constant."""
+        if not self.csdvs_enabled:
+            return 0.0
+        if self.cs_tau_p_ms is None or self.cs_tau_p_ms == 0:
+            return 0.0
+        return self.cs_tau_p_ms / (self.cs_lambda_pixels**2)
+
+    @property
+    def per_frame(self) -> bool:
+        """Whether a chunk runs the per-frame step (core.emulator_step):
+        CSDVS, the probe and the state frames need its per-frame values."""
+        return self.csdvs_enabled or bool(self.emit_states) or self.probe is not None
 
     @property
     def needs_inten01(self) -> bool:

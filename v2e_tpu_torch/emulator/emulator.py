@@ -1,21 +1,26 @@
-"""`EventEmulator`: the stateful DVS emulator facade (port of the parts of
-v2e_tpu/emulator/emulator.py that the fused conversion uses).
+"""`EventEmulator`: the stateful DVS emulator facade (port of
+v2e_tpu/emulator/emulator.py).
 
-Push chunks of frames with `generate_events_batch(frames, times)`, or split
-the work with `submit_batch` / `collect`.  The chunk runs on the device
-(`emulate_and_compact_impl`); `collect` fetches the compacted cells
-(`collect_fetch`) and materializes AER events on the host, writing the
-AEDAT-2 and text sinks (`collect_finalize`).  The JAX package's
+Push frames with `generate_events(frame, t)` or chunks of frames with
+`generate_events_batch(frames, times)`, or split the work with
+`submit_batch` / `collect`.  The chunk runs on the device
+(`emulate_and_compact_impl`); `collect` fetches the compacted cells, the
+single-pixel probe and the model-state frames (`collect_fetch`) and
+materializes AER events on the host, writing the AEDAT-2 and text sinks,
+the probe's record and the state videos (`collect_finalize`).
+`save_state` / `load_state` checkpoint a conversion.  The JAX package's
 `prewarm_collect` compiles XLA slice programs ahead of time; PyTorch runs
-eagerly, so it has no counterpart.  The HDF5 and AEDAT-4 sinks, the probe
-and model-state outputs and the multi-device modes are not ported yet.
+eagerly, so it has no counterpart.  The HDF5 and AEDAT-4 sinks and the
+multi-device modes are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
-from typing import Dict, Optional
+import pickle
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +39,42 @@ from v2e_tpu_torch.ops.noise import compute_photoreceptor_noise_voltage
 from v2e_tpu_torch.utils.paths import check_add_suffix
 
 logger = logging.getLogger(__name__)
+
+# display ranges of the model-state videos
+_L255 = float(np.log(255.0))
+MODEL_STATES = {
+    "new_frame": (0, 255),
+    "log_new_frame": (0, _L255),
+    "lp_log_frame": (0, _L255),
+    "scidvs_highpass": (-_L255 / 8, _L255 / 8),
+    "photoreceptor_noise_arr": (-_L255 / 8, _L255 / 8),
+    "cs_surround_frame": (0, _L255),
+    "c_minus_s_frame": (-_L255 / 8, _L255 / 8),
+    "base_log_frame": (-_L255 / 8, _L255 / 8),
+    "diff_frame": (-_L255 / 8, _L255 / 8),
+}
+
+SINGLE_PIXEL_STATES_FILENAME = "pixel-states.dat"
+SINGLE_PIXEL_MAX_SAMPLES = 10000
+# the probe's values per frame, in the order of emulator_step's out["probe"]
+_PROBE_KEYS = (
+    "new_frame",
+    "base_log_frame",
+    "lp_log_frame",
+    "log_new_frame",
+    "pos_thres",
+    "neg_thres",
+    "diff_frame",
+    "final_neg_evts_frame",
+    "final_pos_evts_frame",
+)
+
+# save_state's array names: "params/.<field>", "state/.<field>" (the JAX
+# package's key paths), the host counters and the generator's state
+_SCALARS = "__scalars"
+_GENERATOR = "__generator_state"
+_SHUFFLE = "__shuffle_state"  # the within-iteration shuffle's numpy generator
+_JAX_KEY = "__key_data"
 
 
 def _capacity_bucket(n: int) -> int:
@@ -70,8 +111,35 @@ class EventEmulator:
         label_signal_noise: bool = False,
         shuffle_events_within_iteration: bool = True,
         compaction_capacity_hint: Optional[int] = None,
+        scidvs: bool = False,
+        cs_lambda_pixels: Optional[float] = None,
+        cs_tau_p_ms: Optional[float] = None,
+        show_dvs_model_state: Optional[List[str]] = None,
+        save_dvs_model_state: bool = False,
+        record_single_pixel_states: Optional[Tuple[int, int]] = None,
     ):
+        """`record_single_pixel_states` (x, y) records that pixel's states
+        each frame into pixel-states.dat; `show_dvs_model_state` names the
+        state frames each frame computes (["all"] for every one of
+        MODEL_STATES), which `save_dvs_model_state` writes to an AVI each
+        (there is no display window)."""
         self.device = resolve_device(device)
+        if record_single_pixel_states is not None:
+            if (
+                not isinstance(record_single_pixel_states, tuple)
+                or len(record_single_pixel_states) != 2
+                or not all(isinstance(i, int) for i in record_single_pixel_states)
+            ):
+                raise ValueError(
+                    f"record_single_pixel_states {record_single_pixel_states} must "
+                    "be an (x, y) tuple of ints"
+                )
+        emit_states: tuple = ()
+        if show_dvs_model_state is not None:
+            if len(show_dvs_model_state) == 1 and show_dvs_model_state[0] == "all":
+                emit_states = tuple(MODEL_STATES.keys())
+            else:
+                emit_states = tuple(show_dvs_model_state)
         self.cfg = EmulatorConfig(
             pos_thres=pos_thres, neg_thres=neg_thres, sigma_thres=sigma_thres,
             cutoff_hz=cutoff_hz, leak_rate_hz=leak_rate_hz,
@@ -80,6 +148,8 @@ class EventEmulator:
             refractory_period_s=refractory_period_s,
             shot_noise_rate_hz=shot_noise_rate_hz,
             photoreceptor_noise=photoreceptor_noise, hdr=hdr, seed=seed,
+            scidvs=scidvs, cs_lambda_pixels=cs_lambda_pixels, cs_tau_p_ms=cs_tau_p_ms,
+            probe=record_single_pixel_states, emit_states=emit_states,
         )
         self.cfg.validate()
         self.label_signal_noise = label_signal_noise
@@ -87,6 +157,8 @@ class EventEmulator:
         self.output_folder = output_folder
         self.output_width = output_width
         self.output_height = output_height
+        self.show_dvs_model_state = show_dvs_model_state
+        self.save_dvs_model_state = save_dvs_model_state
 
         self.params = None
         self.state = None
@@ -106,8 +178,17 @@ class EventEmulator:
         )
         self._np_rng = np.random.default_rng(seed if seed != 0 else None)
 
+        self.record_single_pixel_states = record_single_pixel_states
+        self.single_pixel_sample_count = 0
+        self.single_pixel_states = None
+        if record_single_pixel_states is not None:
+            self.single_pixel_states = {
+                k: np.full(SINGLE_PIXEL_MAX_SAMPLES, np.nan) for k in ("time",) + _PROBE_KEYS
+            }
+
         self.dvs_aedat2 = None
         self.dvs_text = None
+        self._video_writers: Dict[str, object] = {}
         if output_folder is not None:
             os.makedirs(output_folder, exist_ok=True)
         if dvs_aedat2:
@@ -128,14 +209,31 @@ class EventEmulator:
             )
 
     def set_dvs_params(self, model: str) -> None:
-        """Apply the 'clean' or 'noisy' preset before the first frame."""
+        """Apply the 'clean' or 'noisy' preset before the first frame; the
+        pixel variant, the probe and the state frames are kept."""
         if self.state is not None:
             raise RuntimeError("set_dvs_params must be called before the first frame")
         presets = {"clean": EmulatorConfig.clean, "noisy": EmulatorConfig.noisy}
         if model not in presets:
             logger.warning(f"dvs_params '{model}' not known: using the given options")
             return
-        self.cfg = presets[model](hdr=self.cfg.hdr, seed=self.cfg.seed)
+        cfg = self.cfg
+        self.cfg = presets[model](
+            hdr=cfg.hdr, seed=cfg.seed, scidvs=cfg.scidvs,
+            cs_lambda_pixels=cfg.cs_lambda_pixels, cs_tau_p_ms=cfg.cs_tau_p_ms,
+            probe=cfg.probe, emit_states=cfg.emit_states,
+        )
+
+    def reset(self) -> None:
+        """Start again from the next frame, which initializes the state."""
+        self.params = None
+        self.state = None
+        self.t_origin = 0.0
+        self.t_previous = 0.0
+        self.frame_counter = 0
+        self.num_events_total = 0
+        self.num_events_on = 0
+        self.num_events_off = 0
 
     # ------------------------------------------------------------------
     def _initialize(self, first_frame: torch.Tensor, t0: float) -> None:
@@ -180,6 +278,14 @@ class EventEmulator:
             self.t_origin += last_rel
 
     # ------------------------------------------------------------------
+    def generate_events(self, new_frame, t_frame: float) -> Optional[np.ndarray]:
+        """The single-frame API of the original v2e: one frame at absolute
+        time `t_frame`; returns its events f64[N,4] = [t, x, y, p], or None
+        (the first frame, or no events)."""
+        return self.generate_events_batch(
+            torch.as_tensor(new_frame)[None], np.array([t_frame], dtype=np.float64)
+        )
+
     def generate_events_batch(self, frames, times) -> Optional[np.ndarray]:
         """Emulate a chunk of frames [F,H,W] at absolute float64 times [F];
         returns the chunk's events f64[N,4] = [t, x, y, p] or None."""
@@ -284,6 +390,12 @@ class EventEmulator:
             sparse = compact_chunk(self.cfg, handle["outs"], cap)
         self._capacity = max(self._capacity, _capacity_bucket(2 * max(n_occ, 1)))
         packed["sparse"] = {k: v[:n_occ].cpu().numpy() for k, v in sparse.items()}
+        if self.cfg.probe is not None:
+            packed["probe"] = handle["packed"]["probe"].cpu().numpy()
+        if self.cfg.emit_states and self.save_dvs_model_state:
+            packed["states"] = {
+                k: v.cpu().numpy() for k, v in handle["outs"]["states"].items()
+            }
         return packed
 
     def collect_finalize(self, handle: Dict, packed: Dict):
@@ -308,14 +420,148 @@ class EventEmulator:
         self.num_events_on += int(np.sum(packed["num_on"]))
         self.num_events_off += int(np.sum(packed["num_off"]))
         self.num_events_total = self.num_events_on + self.num_events_off
+        if "probe" in packed:
+            self._record_probe(packed["probe"], handle["times"])
+        if "states" in packed:
+            self._handle_state_frames(packed["states"])
         if self.dvs_aedat2 is not None:
             self.dvs_aedat2.appendEvents(events, signnoise_label=labels)
         if self.dvs_text is not None:
             self.dvs_text.appendEvents(events, signnoise_label=labels)
         return events, labels, offsets
 
+    # ------------------------------------------------------------------
+    def _record_probe(self, probe: np.ndarray, times: np.ndarray) -> None:
+        """Append the chunk's probe rows f32[F,9] at their absolute times;
+        at SINGLE_PIXEL_MAX_SAMPLES samples the record is saved and closed."""
+        if self.single_pixel_states is None:
+            return
+        for f in range(probe.shape[0]):
+            k = self.single_pixel_sample_count
+            if k >= SINGLE_PIXEL_MAX_SAMPLES:
+                self.save_recorded_single_pixel_states()
+                self.single_pixel_states = None
+                return
+            self.single_pixel_states["time"][k] = times[f]
+            for i, name in enumerate(_PROBE_KEYS):
+                self.single_pixel_states[name][k] = probe[f, i]
+            self.single_pixel_sample_count += 1
+
+    def save_recorded_single_pixel_states(self) -> None:
+        """Pickle the probe's record (a dict of float arrays, NaN past the
+        last sample) to pixel-states.dat in the output folder."""
+        if self.single_pixel_states is None:
+            return
+        path = os.path.join(self.output_folder or ".", SINGLE_PIXEL_STATES_FILENAME)
+        with open(path, "wb") as f:
+            pickle.dump(self.single_pixel_states, f, protocol=pickle.HIGHEST_PROTOCOL)
+        logger.info(
+            f"saved single-pixel states with {self.single_pixel_sample_count} "
+            f"samples to {path}"
+        )
+
+    def _handle_state_frames(self, states: Dict[str, np.ndarray]) -> None:
+        """Append each state's frames [F,H,W] to <name>.avi in the output
+        folder, scaled by its MODEL_STATES range to 8 bits."""
+        import cv2
+
+        from v2e_tpu_torch.utils.video import video_writer
+
+        for name, stack in states.items():
+            lo, hi = MODEL_STATES[name]
+            if name not in self._video_writers:
+                h, w = stack.shape[1:]
+                self._video_writers[name] = video_writer(
+                    os.path.join(self.output_folder or ".", name + ".avi"), h, w
+                )
+            vw = self._video_writers[name]
+            for frame in stack:
+                img8 = (np.clip((frame - lo) / (hi - lo), 0, 1) * 255).astype(np.uint8)
+                vw.write(cv2.cvtColor(img8, cv2.COLOR_GRAY2BGR))
+
+    # ------------------------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Checkpoint the emulator so a conversion can resume: every
+        parameter and state array, the host counters, the generator's state
+        and the event shuffle's, in one .npz with the JAX package's names
+        (the generator's state takes the place of its PRNG key)."""
+        if self.state is None:
+            raise RuntimeError("no state to save (no frames processed yet)")
+        blobs = {}
+        for name in ("params", "state"):
+            obj = getattr(self, name)
+            for f in dataclasses.fields(obj):
+                value = getattr(obj, f.name)
+                if value is not None:
+                    blobs[f"{name}/.{f.name}"] = value.cpu().numpy()
+        blobs[_SCALARS] = np.array(
+            [self.t_origin, self.t_previous, self.frame_counter,
+             self.num_events_on, self.num_events_off, self._capacity],
+            dtype=np.float64,
+        )
+        blobs[_GENERATOR] = self.generator.get_state().numpy()
+        blobs[_SHUFFLE] = np.array(json.dumps(self._np_rng.bit_generator.state))
+        np.savez(path, **blobs)
+        logger.info(f"saved emulator state to {path}")
+
+    def load_state(self, path: str) -> None:
+        """Restore a checkpoint written by `save_state`, or by the JAX
+        package's.  The emulator must have the checkpoint's configuration
+        and no frames yet.  A JAX checkpoint holds a PRNG key instead of the
+        generator's state: the generator then stays seeded from the
+        configuration, so the noise stream is the port's own."""
+        if self.state is not None:
+            raise RuntimeError("load_state requires a fresh emulator")
+        npz = np.load(path)
+        H, W = next(npz[k].shape for k in npz.files if k.endswith("pos_thres"))
+        # the configuration's fields, from a throwaway initialization
+        params, state = init_state(
+            self.cfg, torch.zeros((H, W), device=self.device), 0.0,
+            torch.Generator(device=self.device),
+        )
+
+        def restore(name, obj):
+            values = {}
+            for f in dataclasses.fields(obj):
+                key = f"{name}/.{f.name}"
+                if key in npz.files:
+                    values[f.name] = torch.from_numpy(npz[key]).to(self.device)
+            return dataclasses.replace(obj, **values)
+
+        self.params = restore("params", params)
+        self.state = restore("state", state)
+        sc = npz[_SCALARS]
+        self.t_origin = float(sc[0])
+        self.t_previous = float(sc[1])
+        self.frame_counter = int(sc[2])
+        self.num_events_on = int(sc[3])
+        self.num_events_off = int(sc[4])
+        self.num_events_total = self.num_events_on + self.num_events_off
+        self._capacity = int(sc[5])
+        if _GENERATOR in npz.files:
+            self.generator.set_state(torch.from_numpy(npz[_GENERATOR]))
+            self._np_rng.bit_generator.state = json.loads(str(npz[_SHUFFLE]))
+        elif _JAX_KEY in npz.files:
+            logger.info(
+                f"{path} was written by v2e_tpu: its PRNG key has no counterpart "
+                "here, so the noise stream from now on is this emulator's own "
+                f"(its generator seeded from the configuration, seed {self.cfg.seed})"
+            )
+        if self.output_height is None:
+            self.output_height, self.output_width = H, W
+        logger.info(
+            f"restored emulator state from {path} "
+            f"(t={self.t_previous:.4f}s, {self.frame_counter} frames)"
+        )
+
     def cleanup(self) -> None:
-        """Close the event sinks."""
+        """Close the event sinks and state videos and save the probe's
+        record."""
         for sink in (self.dvs_aedat2, self.dvs_text):
             if sink is not None:
                 sink.close()
+        for vw in self._video_writers.values():
+            vw.release()
+        self._video_writers = {}
+        if self.record_single_pixel_states is not None:
+            self.save_recorded_single_pixel_states()

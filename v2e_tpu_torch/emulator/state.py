@@ -33,6 +33,7 @@ class EmulatorParams:
     neg_thres_pre_prob: torch.Tensor
     noise_rate_array: torch.Tensor  # f32[H,W] lognormal leak/shot FPN rates
     photoreceptor_noise_vrms: torch.Tensor  # f32 scalar, host-calibrated
+    scidvs_tau_arr: Optional[torch.Tensor] = None  # f32[H,W] (SciDVS only)
 
 
 @dataclasses.dataclass
@@ -44,6 +45,9 @@ class EmulatorState:
     photoreceptor_noise_arr: torch.Tensor  # f32[H,W] filtered injected noise
     timestamp_mem: torch.Tensor  # f32[H,W] last spike time (chunk-relative)
     t_prev: torch.Tensor  # f32 scalar, chunk-relative time of previous frame
+    scidvs_highpass: Optional[torch.Tensor] = None  # f32[H,W] (SciDVS only)
+    scidvs_previous_photo: Optional[torch.Tensor] = None  # f32[H,W] (SciDVS only)
+    cs_surround_frame: Optional[torch.Tensor] = None  # f32[H,W] (CSDVS only)
 
 
 def init_state(
@@ -54,8 +58,10 @@ def init_state(
 ) -> Tuple[EmulatorParams, EmulatorState]:
     """Parameters and state from the first frame (linear 0-255 or HDR log):
     Gaussian threshold mismatch clamped at 0.01, lognormal noise-rate FPN,
-    refractory memory primed to ``t0 - R`` so the first events pass, and
-    the memorized base set to the first log frame."""
+    the SciDVS lognormal tau map, refractory memory primed to ``t0 - R`` so
+    the first events pass, and the memorized base set to the first log
+    frame; for CSDVS the surround starts equal to the photoreceptor, so the
+    center-minus-surround base starts at zero."""
     dev = first_frame.device
     shape = tuple(first_frame.shape)
     f32 = torch.float32
@@ -78,6 +84,12 @@ def init_state(
     else:
         rate = torch.ones(shape, dtype=f32, device=dev)
 
+    scidvs_tau = None
+    if cfg.scidvs and cfg.scidvs_tau_cov > 0:
+        scidvs_tau = cfg.scidvs_tau_s * torch.exp(cfg.scidvs_tau_cov * normal())
+    elif cfg.scidvs:
+        scidvs_tau = torch.full(shape, cfg.scidvs_tau_s, dtype=f32, device=dev)
+
     params = EmulatorParams(
         pos_thres=pos,
         neg_thres=neg,
@@ -85,16 +97,21 @@ def init_state(
         neg_thres_pre_prob=scalar(cfg.neg_thres, neg) / neg,
         noise_rate_array=rate,
         photoreceptor_noise_vrms=torch.zeros((), dtype=f32, device=dev),
+        scidvs_tau_arr=scidvs_tau,
     )
+    cs_surround = lp if cfg.csdvs_enabled else None
     t0_t = torch.tensor(t0, dtype=f32, device=dev)
     state = EmulatorState(
-        base_log_frame=lp,
+        base_log_frame=(lp - cs_surround) if cfg.csdvs_enabled else lp,
         lp_log_frame=lp,
         photoreceptor_noise_arr=torch.zeros(shape, dtype=f32, device=dev),
         timestamp_mem=torch.full(
             shape, -cfg.refractory_period_s, dtype=f32, device=dev
         ) + t0_t,
         t_prev=t0_t,
+        scidvs_highpass=torch.zeros(shape, dtype=f32, device=dev) if cfg.scidvs else None,
+        scidvs_previous_photo=lp if cfg.scidvs else None,
+        cs_surround_frame=cs_surround,
     )
     return params, state
 
@@ -115,17 +132,15 @@ def from_jax_emulator(
     """Carry the JAX package's `EmulatorParams`/`EmulatorState` across.
 
     Takes each as a dict of field name -> numpy array (fields the port does
-    not have, such as the PRNG key, are ignored).
+    not have, such as the PRNG key and the step counter, are ignored; the
+    variant fields that are absent or None stay None).
     """
     dev = resolve_device(device)
 
-    def t(a):
-        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    def fields(cls, arrays):
+        return cls(**{
+            f.name: torch.from_numpy(np.array(arrays[f.name], dtype=np.float32)).to(dev)
+            for f in dataclasses.fields(cls) if arrays.get(f.name) is not None
+        })
 
-    params = EmulatorParams(
-        **{f.name: t(params_np[f.name]) for f in dataclasses.fields(EmulatorParams)}
-    )
-    state = EmulatorState(
-        **{f.name: t(state_np[f.name]) for f in dataclasses.fields(EmulatorState)}
-    )
-    return params, state
+    return fields(EmulatorParams, params_np), fields(EmulatorState, state_np)

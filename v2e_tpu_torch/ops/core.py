@@ -14,8 +14,9 @@ except at double-rounding ties (about 2^-29 of updates).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,6 +34,24 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return (a.double() * b.double() + c.double()).float()
 
 
+@functools.lru_cache(maxsize=None)
+def _serial_first_vml_calls() -> None:
+    """Make the process's first call of MKL's vector log and exp serial.
+
+    On the CPU torch.log and torch.exp call MKL's VML (vsLn, vdExp, ...)
+    on each thread's chunk of the tensor.  VML picks its implementation of
+    a function on the function's first call, and when several threads make
+    that first call at once, one of them may run a different one: in about
+    one process in ten, one thread's chunk of the first parallel torch.log
+    came back up to 80 ulp off (3.7e-5 at 5.0), every later call exact.
+    A first call on a few elements runs on the calling thread alone.
+    """
+    for dtype in (torch.float32, torch.float64):
+        x = torch.ones(8, dtype=dtype)
+        torch.log(x)
+        torch.exp(x)
+
+
 def lin_log(x: torch.Tensor, threshold: float = LIN_LOG_THRESHOLD) -> torch.Tensor:
     """Linear-to-log intensity map of 0-255 frames: linear below
     `threshold` DN, natural log above (v2e_tpu ops/core.py:23).
@@ -42,6 +61,8 @@ def lin_log(x: torch.Tensor, threshold: float = LIN_LOG_THRESHOLD) -> torch.Tens
     """
     f = (1.0 / threshold) * math.log(threshold)
     xf = x.to(torch.float32)
+    if xf.device.type == "cpu":
+        _serial_first_vml_calls()
     safe = torch.clamp(xf, min=1e-20)
     return torch.where(xf <= threshold, xf * scalar(f, xf), torch.log(safe))
 
@@ -49,6 +70,26 @@ def lin_log(x: torch.Tensor, threshold: float = LIN_LOG_THRESHOLD) -> torch.Tens
 def rescale_intensity_frame(new_frame: torch.Tensor) -> torch.Tensor:
     """0-255 intensity to the (0,1] filter-time-constant scale."""
     return (new_frame + 20.0) / scalar(275.0, new_frame)
+
+
+def low_pass_filter(
+    log_new_frame: torch.Tensor,
+    lp_log_frame: torch.Tensor,
+    inten01: Optional[torch.Tensor],
+    delta_time: torch.Tensor,
+    cutoff_hz: float = 0.0,
+) -> torch.Tensor:
+    """One frame of the intensity-dependent first-order IIR lowpass of the
+    log intensity: ``eps = inten01 * dt / tau`` clamped to 1 (brighter
+    pixels are faster); a passthrough when ``cutoff_hz <= 0``."""
+    if cutoff_hz <= 0:
+        return log_new_frame
+    tau = scalar(1.0 / (math.pi * 2 * cutoff_hz), log_new_frame)
+    if inten01 is not None:
+        eps = torch.clamp(inten01 * (delta_time / tau), max=1.0)
+    else:
+        eps = delta_time / tau
+    return (1.0 - eps) * lp_log_frame + eps * log_new_frame
 
 
 def subtract_leak_current(
