@@ -79,16 +79,47 @@ Phases, each printed on its own line with its seconds:
  10. the interp UNet's forward at the fused chunk's shape (80 x 12 channels
      of 256x320, bf16, base 32) in the conv forms dense, packedz, fold45,
      packedfold45 and fold: time and max abs difference from dense, and
-     the device kernels of one dense and one fold45 forward, printed only.
+     the device kernels of one dense and one fold45 forward, printed only;
+ 11. the CLI's synthetic entry point (--synthetic_input) at 346x260, after
+     the video runs:
+       F. scripts.moving_dot at the defaults with --skip_video_output: the
+          device path (each chunk of 64 frames rendered on the card), one K1
+          launch per chunk and nothing else, event times inside the
+          stimulus' span;
+       G. run F with the videos on: the host path (next_frame), equal to
+          run F event for event, or, where the card's renderer differs from
+          the host painter, those pixels printed and the totals within
+          0.1 %; a non-empty video_orig.avi;
+       H. scripts.particles --dvs_params noisy with --skip_video_output: the
+          device path with the host walker, one K2 launch per chunk;
+     each with its realtime factor, and the device time of runs F and H
+     over a quarter of their stimulus; the bytes copied host to device for
+     one chunk of runs F and H are read first, right after the build
+     (`[h2d]`, torch.profiler, between two marker copies that show the
+     trace recorded the whole chunk), and must stay under one frame;
+ 12. the six generators' first 640 frames at 346x260, the card's renderer
+     against the port's host painter (one level at most, at no more than
+     1e-4 of the pixels; particles within 1e-5 relative of the host
+     painter on the same float32 centers, its next_frame differences
+     printed) and against the same renderer on the CPU (particles within 1e-5
+     relative), with each renderer's time per 64-frame chunk;
+ 13. estimate_thresholds on 640 moving-dot frames rendered on the card (no
+     mismatch, noise or lowpass; targets from a run at 0.25/0.25): the same
+     thresholds and probes on the card as on the CPU;
+ 14. K1 again at run F's shape: 64 frames of 260x346 at dt = 100 us, R =
+     0.5 ms (the filter acts on every pixel that fires).
 
-Then a JSON line of the variant phases' numbers, one JSON line with every
-kernel's numbers, the nvidia-smi line again,
+Then a JSON line of the variant phases' numbers, one of the synthetic
+phases' numbers, one JSON line with every kernel's numbers (K1's launches
+in run F and K2's in run H beside those of the fused chunk and run B), the
+nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when CUDA is unavailable, a kernel does not build or disagrees, or any
 check fails.
 """
 from __future__ import annotations
 
+import copy
 import faulthandler
 import json
 import os
@@ -96,6 +127,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 TIME_LIMIT_S = 1100  # a hang becomes a traceback and a non-zero exit
 
@@ -108,6 +140,7 @@ PEAK_BF16_OPS_S = 989e12
 H, W = 260, 346
 U, B = 10, 16
 SRC_FPS = 30.0
+RUN_B_U = 12  # run B's fixed upsampling (--timestamp_resolution 0.003 at 30 fps)
 N_MEAS = 4
 
 
@@ -297,11 +330,11 @@ def phase_k3(torch, dev):
     }
 
 
-def k2_inputs(torch, dev, F, h, w, noisy=True, seed=4):
+def k2_inputs(torch, dev, F, h, w, noisy=True, seed=4, dt=1.0 / (SRC_FPS * RUN_B_U)):
     """K2's inputs at F x h x w: the moving-bar log frames of refr_inputs,
     and with `noisy` the noisy preset's leak and shot noise drawn as
-    emulate_chunk_apply draws them at run B's frame interval.  Returns the
-    scan's arguments."""
+    emulate_chunk_apply draws them at frame interval `dt` (run B's by
+    default).  Returns the scan's arguments."""
     from v2e_tpu_torch.emulator.config import EmulatorConfig
     from v2e_tpu_torch.ops.core import generate_shot_noise, rescale_intensity_frame
 
@@ -317,7 +350,6 @@ def k2_inputs(torch, dev, F, h, w, noisy=True, seed=4):
     pos = torch.clamp(cfg.pos_thres + cfg.sigma_thres * torch.randn((h, w), generator=g, device=dev), min=0.01)
     neg = torch.clamp(cfg.neg_thres + cfg.sigma_thres * torch.randn((h, w), generator=g, device=dev), min=0.01)
     rate = torch.exp(2.302585 * cfg.noise_rate_cov_decades * torch.randn((h, w), generator=g, device=dev))
-    dt = 1.0 / (SRC_FPS * RUN_B_U)
     leak = (dt * (cfg.leak_rate_hz * rate)
             * (1.0 - cfg.leak_jitter_fraction * torch.randn((F, h, w), generator=g, device=dev)) * pos)
     inten01 = rescale_intensity_frame(torch.exp(lp).clamp(max=255.0))
@@ -349,12 +381,13 @@ def time_device_ms(torch, fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2):
-    """K2 against its plain version on k2_inputs: counts equal, base within
-    1e-6, one launch per call; then both timed.  Returns the numbers."""
+def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2, **inputs):
+    """K2 against its plain version on k2_inputs (`inputs` goes to it):
+    counts equal, base within 1e-6, one launch per call; then both timed.
+    Returns the numbers."""
     from v2e_tpu_torch.ops.kernels.emulator_scan import GROUP, RING, scan, scan_plain
 
-    args = k2_inputs(torch, dev, F, h, w, noisy)
+    args = k2_inputs(torch, dev, F, h, w, noisy, **inputs)
     before = scan.launches
     got = scan(*args)
     per_call = scan.launches - before
@@ -533,7 +566,6 @@ def phase_k4(torch, dev, shape, max_base, launches):
 
 
 CLI_FRAMES = 33
-RUN_B_U = 12  # run B's fixed upsampling (--timestamp_resolution 0.003 at 30 fps)
 
 
 def write_cli_input(np, folder):
@@ -1042,6 +1074,363 @@ def phase_unet_forms(torch, dev, n=U * B // 2, h=256, w=320):
                            f"{form} forward (share of dense's time)", top=5)
 
 
+# the synthetic generators, in the order of [synthetic-gens]
+SYNTHETIC = ("moving_dot", "single_linearly_moving_dot", "spots", "barberpole",
+             "gradients", "particles")
+GEN_FRAMES = 640
+# a uint8-level renderer may leave pixels one level off the float64 host
+# painter where a float32 time, angle or phase lands on the other side of a
+# floor or a comparison (tests/test_torch_synthetic.py counts them on the
+# CPU: at most 3380 of 640 x 260 x 346, 5.9e-5, in gradients)
+GEN_PIXEL_SHARE = 1e-4
+# copies that open and close a profiled CLI run's trace ([h2d] runs before
+# any other profile: late in a long run a trace lacked its first copies)
+MARKER_BYTES = (4096, 8192)
+SYNTHETIC_F = ["--synthetic_input", "scripts.moving_dot"]
+SYNTHETIC_H = ["--synthetic_input", "scripts.particles", "--dvs_params", "noisy"]
+# each generator's flag for the stimulus' length in seconds
+SYNTHETIC_LENGTH = {"F": "--t_total", "H": "--total_time"}
+
+
+def cli_copies(torch, np, argv, n_frames):
+    """The copies (name, bytes) that a torch.profiler trace records over one
+    whole `cli.run(argv)` cut to n_frames frames of 100 us, between two
+    marker copies host to device (MARKER_BYTES) that show the trace recorded
+    all of it.  The run makes its cached 0-d operands anew."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2e_tpu_torch import cli, device
+
+    device._scalar.cache_clear()
+    markers = [np.zeros(n // 4, dtype=np.float32) for n in MARKER_BYTES]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.from_numpy(markers[0]).to("cuda")
+        torch.cuda.synchronize()
+        stats = cli.run(argv, device="cuda")
+        torch.cuda.synchronize()
+        torch.from_numpy(markers[1]).to("cuda")
+        torch.cuda.synchronize()
+    if stats.n_frames != n_frames:
+        raise AssertionError(f"{argv}: {stats.n_frames} frames, not {n_frames}")
+    path = os.path.join(argv[argv.index("-o") + 1], "h2d-trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    copies = [(e.get("name", ""), int(e.get("args", {}).get("bytes", -1)))
+              for e in sorted(trace, key=lambda e: e.get("ts", 0))
+              if e.get("cat") == "gpu_memcpy"]
+    ends = copies[:1] + copies[-1:]
+    if [b for n, b in ends if "HtoD" in n] != list(MARKER_BYTES):
+        raise AssertionError(f"{argv}: the trace's first and last copies are not the "
+                             f"markers: {copies[:4]} ... {copies[-4:]}")
+    return copies[1:-1]
+
+
+def phase_h2d(torch, np):
+    """The bytes the CLI copies host to device per chunk on runs F's and H's
+    device path, which must stay under one frame: the copies of a whole
+    3-chunk run less those of a 2-chunk run (after an unprofiled warm run),
+    so that they hold everything the CLI does per chunk.  Returns {run:
+    bytes per chunk}."""
+    from v2e_tpu_torch import cli
+
+    frame_bytes = H * W * 4
+    c = 64  # the CLI's default --chunk_size
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, flags in (("F", SYNTHETIC_F), ("H", SYNTHETIC_H)):
+            def argv(chunks, tag):
+                # the generators take frames at arange(0, length, 100 us)
+                return flags + ["--dvs_emulator_seed", "7", "--skip_video_output",
+                                SYNTHETIC_LENGTH[name], str((chunks * c - 0.5) * 1e-4),
+                                "-o", os.path.join(tmp, f"h2d{name}{tag}")]
+
+            cli.run(argv(2, "warm"), device="cuda")
+            runs = {k: cli_copies(torch, np, argv(k, k), k * c) for k in (2, 3)}
+            per = {k: {d: [b for n, b in cp if d in n] for d in ("HtoD", "DtoD", "DtoH")}
+                   for k, cp in runs.items()}
+            nbytes = sum(per[3]["HtoD"]) - sum(per[2]["HtoD"])
+            if not 0 <= nbytes < frame_bytes:
+                raise AssertionError(f"run {name}: {nbytes} B host to device per chunk, "
+                                     f"not under one frame ({frame_bytes} B)")
+            log(f"[h2d] run {name}: {nbytes} B host to device per chunk of {c} frames (one "
+                f"frame is {frame_bytes} B): the CLI's whole 3-chunk run copies "
+                f"{sum(per[3]['HtoD'])} B in {len(per[3]['HtoD'])} copies host to device, "
+                f"its 2-chunk run {sum(per[2]['HtoD'])} B in {len(per[2]['HtoD'])}; per chunk "
+                + ", ".join(f"{len(per[3][d]) - len(per[2][d])} copies {d}"
+                            for d in ("HtoD", "DtoD", "DtoH")))
+            out[name] = nbytes
+    return out
+
+
+def event_lines(path):
+    """A text sink's event lines (its header carries a creation time)."""
+    with open(path) as f:
+        return [ln for ln in f.read().splitlines() if not ln.startswith("#")]
+
+
+def phase_synthetic_cli(torch, np, tmp, counters):
+    """The CLI's synthetic entry point at 346x260 on the card: runs F
+    (moving_dot, device path, K1), G (run F with the videos on: the host
+    path) and H (particles, noisy: device path with the host walker, K2),
+    each with every kernel's launch counter set to 0 before and read after;
+    then the device time of shortened runs F and H under torch.profiler.
+    Returns {run: launches by kernel} and {run: {kernel: {(F, H, W, leak
+    and shot given): calls}}}, the calls the emulator made in the run."""
+    import v2e_tpu_torch.emulator.core as core
+    from v2e_tpu_torch import cli
+
+    seed = ["--dvs_emulator_seed", "7"]  # F and G draw the same noise
+    runs = {
+        "F": SYNTHETIC_F + seed + ["--skip_video_output", "--dvs_text", "f.txt"],
+        "G": SYNTHETIC_F + seed + ["--dvs_text", "g.txt"],
+        "H": SYNTHETIC_H + seed + ["--skip_video_output"],
+    }
+    want = {"F": "refractory_scan", "G": "refractory_scan", "H": "scan"}
+    launches, stats_by, shapes = {}, {}, {}
+    real = {k: getattr(core, k) for k in ("refractory_scan", "scan")}
+
+    def recorded(k, calls):
+        def call(lp, leak, shot, *rest):
+            calls[(*lp.shape, leak is not None and shot is not None)] += 1
+            return real[k](lp, leak, shot, *rest)
+        return call
+
+    for name, flags in runs.items():
+        out = os.path.join(tmp, "syn" + name)
+        for fn in counters.values():
+            fn.launches = 0
+        shapes[name] = {k: Counter() for k in real}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        try:
+            for k in real:
+                setattr(core, k, recorded(k, shapes[name][k]))
+            stats = cli.run(flags + ["-o", out], device="cuda")
+        finally:
+            for k, fn in real.items():
+                setattr(core, k, fn)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        stats_by[name] = stats
+        chunks = -(-stats.n_frames // 64)
+        others = {k: v for k, v in launches[name].items() if k != want[name] and v}
+        if launches[name][want[name]] != chunks or others:
+            raise AssertionError(f"run {name}: launches {launches[name]} for {chunks} chunks; "
+                                 f"wants one {want[name]} launch per chunk and nothing else")
+        span = (stats.first_ts, stats.last_ts)
+        if stats.num_events <= 0 or span[0] != 0.0:
+            raise AssertionError(f"run {name}: {stats.num_events} events, frames {span}")
+        where = ""
+        if name in "FG":
+            ev = np.loadtxt(os.path.join(out, name.lower() + ".txt"), comments="#",
+                            usecols=0)
+            if len(ev) != stats.num_events or not (
+                    ev.min() >= span[0] - 1e-6 and ev.max() <= span[1] + 1e-6):
+                raise AssertionError(f"run {name}: {len(ev)} event times in "
+                                     f"{ev.min()}-{ev.max()}, frames {span}")
+            where = f", event times {ev.min():.6f}-{ev.max():.6f} s inside the frames' span"
+        log(f"[cli] run {name}: {stats.n_frames} frames of {W}x{H} in {chunks} chunks, "
+            f"{stats.num_events} events{where}; launches "
+            + ", ".join(f"{k} {v}" for k, v in launches[name].items())
+            + f"; {want[name]} calls by (F, H, W, leak and shot) "
+            + ", ".join(f"{k} x{v}" for k, v in sorted(shapes[name][want[name]].items()))
+            + f"; wall {wall:.2f} s, realtime factor {stats.realtime_factor:.4f} "
+            f"(stimulus {span[1] - span[0]:.4f} s, cli {stats.wall_s:.2f} s)")
+
+    # run G: the host painter's frames against the card's renderer
+    f_ev, g_ev = (event_lines(os.path.join(tmp, "syn" + n, n.lower() + ".txt")) for n in "FG")
+    if f_ev != g_ev:
+        n_px, n_fr, worst = render_diff(np, "moving_dot", stats_by["F"].n_frames)
+        rel = abs(len(f_ev) - len(g_ev)) / len(f_ev)
+        only_f = len(Counter(f_ev) - Counter(g_ev))
+        only_g = len(Counter(g_ev) - Counter(f_ev))
+        log(f"[cli] run G: events differ from run F ({len(g_ev)} vs {len(f_ev)}, {rel:.4%}; "
+            f"{only_f} events of F not in G, {only_g} of G not in F); "
+            f"the card's renderer differs from the host painter at {n_px} pixels in {n_fr} "
+            f"frames, by at most {worst} level")
+        if rel > 1e-3:
+            raise AssertionError(f"run G: event totals differ by {rel:.4%} > 0.1 %")
+    else:
+        log(f"[cli] run G (host path, videos on): all {len(g_ev)} events equal to run F's")
+    avi = os.path.join(tmp, "synG", "video_orig.avi")
+    if os.path.getsize(avi) <= 0:
+        raise AssertionError("run G: video_orig.avi is empty")
+    log(f"[cli] run G: video_orig.avi {os.path.getsize(avi)} B")
+
+    short = {"F": SYNTHETIC_F + seed + ["--skip_video_output", "--cycles", "0.25"],
+             "H": SYNTHETIC_H + seed + ["--skip_video_output", "--total_time", "0.25"]}
+    for name, flags in short.items():
+        argv = flags + ["-o", os.path.join(tmp, "prof" + name)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        cli.run(argv, device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        profile_device(torch, "syn-profile", lambda: cli.run(argv, device="cuda"), ms,
+                       f"run {name} over a quarter of its stimulus", top=8)
+    return launches, {name: shapes[name][want[name]] for name in runs}
+
+
+def twins(name, k):
+    """k instances of generator `name` at W x H that render the same frames
+    (particles: the same walkers and respawn stream)."""
+    from v2e_tpu_torch.synthetic import load_synthetic_input
+
+    cls = load_synthetic_input(f"scripts.{name}")
+    out = [cls(width=W, height=H) for _ in range(k)]
+    if name == "particles":
+        for o in out[1:]:
+            o.pos, o.vel = out[0].pos.copy(), out[0].vel.copy()
+            o._rng = copy.deepcopy(out[0]._rng)
+    return out
+
+
+def gen_frames(np, name, n, devices, chunk=64):
+    """The first n frames of generator `name` at W x H, as numpy: the host
+    painter's (float32), then the renderer's on each of `devices`, chunk by
+    chunk, all from the same walkers; with their times and a spare
+    instance."""
+    host_syn, *syns, spare = twins(name, len(devices) + 2)
+    frames, ts = [], []
+    for _ in range(n):
+        fr, t = host_syn.next_frame()
+        frames.append(np.asarray(fr, dtype=np.float32))
+        ts.append(t)
+    ts = np.asarray(ts)
+    renders = [np.concatenate([syn.device_frames(ts[s: s + chunk], device).cpu().numpy()
+                               for s in range(0, n, chunk)])
+               for syn, device in zip(syns, devices)]
+    return np.stack(frames), renders, ts, spare
+
+
+def render_diff(np, name, n):
+    """Pixels, frames and the largest level by which the card's renderer
+    differs from the host painter over the first n frames of `name`."""
+    host, (card,), _, _ = gen_frames(np, name, n, ("cuda",))
+    d = np.abs(card - host)
+    return (int((d > 0).sum()), int((d.reshape(n, -1).max(axis=1) > 0).sum()),
+            float(d.max()))
+
+
+def phase_synthetic_gens(torch, np, dev, n=GEN_FRAMES):
+    """The first n frames of each generator at 346x260: the card's renderer
+    against the port's host painter and against the same renderer on the
+    CPU, and its time per 64-frame chunk.  Returns {name: numbers}."""
+    from v2e_tpu_torch.synthetic.device import particles_frames
+    from v2e_tpu_torch.synthetic.draw import paint_gaussian_dots
+
+    out = {}
+    n_pix = n * H * W
+    for name in SYNTHETIC:
+        host, (card, cpu), ts, spare = gen_frames(np, name, n, (dev, "cpu"))
+        d_host = np.abs(card - host)
+        d_cpu = np.abs(card - cpu)
+        if name == "particles":
+            walker, timed = twins(name, 2)
+            args = (W, H, float(spare.fg), float(spare.bg), float(spare.radius), 2.0,
+                    int(spare.radius * 2) + 1)
+            painted = np.stack([paint_gaussian_dots(c, *args) for c in spare.trajectory(ts)])
+            rel = float((np.abs(card - painted) / np.maximum(painted, 1.0)).max())
+            rel_cpu = float((d_cpu / np.maximum(np.abs(cpu), 1.0)).max())
+            ok = rel <= 1e-5 and rel_cpu <= 1e-5
+            what = (f"max relative err {rel:.3g} against the host painter on the same float32 "
+                    f"centers, {rel_cpu:.3g} against the CPU renderer on them; against "
+                    f"next_frame (float64 positions) max abs err {d_host.max():.3g}, "
+                    f"{int((d_host > 1e-3).sum())} pixels beyond 1e-3 in "
+                    f"{int((d_host.reshape(n, -1).max(1) > 1e-3).sum())} frames")
+            centers = walker.trajectory(ts[:64])
+            ms = time_ms(torch, lambda: particles_frames(centers, *args, device=dev), reps=20)
+            t = time.perf_counter()
+            timed.trajectory(ts[:64])
+            walk_ms = (time.perf_counter() - t) * 1e3
+            what += f"; host walker {walk_ms:.3f} ms per chunk"
+        else:
+            n_host = int((d_host > 0).sum())
+            n_cpu = int((d_cpu > 0).sum())
+            ok = d_host.max() <= 1.0 and n_host <= GEN_PIXEL_SHARE * n_pix
+            what = (f"{n_host} pixels in {int((d_host.reshape(n, -1).max(1) > 0).sum())} frames "
+                    f"off the host painter (max {d_host.max():.0f} level), {n_cpu} off the CPU "
+                    f"renderer (max {d_cpu.max():.0f})")
+            ms = time_ms(torch, lambda: spare.device_frames(ts[:64], dev), reps=20)
+        log(f"[synthetic-gens] {name}: {n} frames of {W}x{H}: {what}; renderer {ms:.4f} ms "
+            f"per 64-frame chunk")
+        if not ok:
+            raise AssertionError(f"[synthetic-gens] {name}: {what}")
+        out[name] = {"ms_per_chunk": ms, "max_err_host": float(d_host.max()),
+                     "max_err_cpu": float(d_cpu.max())}
+    return out
+
+
+def run_frames(name, calls, h=H, w=W):
+    """The frame counts of a kernel's calls in run `name`, each call made at
+    h x w, largest first."""
+    if {(ch, cw) for _, ch, cw, _ in calls} != {(h, w)}:
+        raise AssertionError(f"run {name} called the kernel at {dict(calls)}, not at {h}x{w}")
+    return sorted({f for f, *_ in calls}, reverse=True)
+
+
+def phase_k1_run_f(torch, calls, launches):
+    """K1 at each shape run F called it with (its 64-frame chunks and the
+    shorter last one) of 260x346, at the generators' 100 us step under the
+    CLI's 0.5 ms refractory period.  Returns the numbers of the full
+    chunk, with each shape's under `by_frames`."""
+    by = {f: check_k1(torch, f, 1e-4, 0.0005, f"run F shape (F={f}, dt 100 us)")
+          for f in run_frames("F", calls)}
+    log(f"[k1] run F: {launches} launches (one per chunk), calls by (F, H, W, leak and "
+        f"shot) {dict(calls)}")
+    return {**by[max(by)], "by_frames": by}
+
+
+def phase_k2_run_h(torch, dev, calls, launches):
+    """K2 at each shape run H called it with (its 64-frame chunks, which fill
+    the ring's stages only in part, and the shorter last one) of 260x346,
+    with the noisy preset's leak and shot noise at the generators' 100 us
+    step.  Returns the numbers of each shape and run H's launches."""
+    if not all(noisy for *_, noisy in calls):
+        raise AssertionError(f"run H called K2 without leak or shot noise: {dict(calls)}")
+    by = {f: check_k2(torch, dev, f, H, W, True, f"run H shape (F={f}, dt 100 us)", dt=1e-4)
+          for f in run_frames("H", calls)}
+    log(f"[k2] run H: {launches} launches (one per chunk), calls by (F, H, W, leak and "
+        f"shot) {dict(calls)}")
+    return {"launches": launches, "by_frames": by}
+
+
+def phase_thres(torch, np, dev, n=GEN_FRAMES):
+    """estimate_thresholds on n moving-dot frames rendered on the card, no
+    mismatch, noise or lowpass, targets from a run at 0.25/0.25: the same
+    thresholds on the card as on the CPU (which gets the card's frames)."""
+    from v2e_tpu_torch.analysis import thres_estimator as te
+    from v2e_tpu_torch.synthetic.device import moving_dot_frames
+
+    times = np.arange(n) * 1e-4
+    frames = moving_dot_frames(times, W, H, device=dev)
+    clean = dict(sigma_thres=0.0, leak_rate_hz=0.0, shot_noise_rate_hz=0.0, cutoff_hz=0.0)
+    on, off = te._count_events(frames, times, 0.25, 0.25, device=dev, **clean)
+    if min(on, off) <= 0:
+        raise AssertionError(f"[thres] the stimulus gives {on} ON and {off} OFF events")
+    count = te._count_events
+    got = {}
+    try:
+        for device, fr in (("cuda", frames), ("cpu", frames.cpu())):
+            probes = []
+            te._count_events = lambda *a, **k: probes.append(a[2]) or count(*a, **k)
+            t = time.perf_counter()
+            thr = te.estimate_thresholds(fr, times, on, off, device=device, **clean)
+            got[device] = (thr, len(probes), time.perf_counter() - t)
+    finally:
+        te._count_events = count
+    (tg, pg, sg), (tc, pc, sc) = got["cuda"], got["cpu"]
+    log(f"[thres] {n} frames of {W}x{H}, targets {on} ON / {off} OFF at 0.25: card "
+        f"{tg} in {pg} probes, {sg:.2f} s ({sg / max(pg, 1):.3f} s per probe); CPU {tc} in "
+        f"{pc} probes, {sc:.2f} s")
+    if tg != tc or pg != pc:
+        raise AssertionError(f"[thres] card {tg} ({pg} probes) vs CPU {tc} ({pc} probes)")
+    return {"thresholds": list(tg), "probes": pg, "card_s": sg, "cpu_s": sc}
+
+
 def check_events(np, ev, w, h, t_lo, t_hi):
     """Finite [N,4] events on the sensor, with times inside the chunk (the
     device keeps chunk-relative float32 times: 1e-5 s of slack)."""
@@ -1182,6 +1571,10 @@ def main() -> int:
     log(f"[build] nvcc wall {build_s:.2f} s ({time.perf_counter() - t:.2f} s)")
 
     t = time.perf_counter()
+    h2d = phase_h2d(torch, np)
+    log(f"[h2d] {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
     k1 = phase_k1(torch, dev)
     log(f"[k1] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
@@ -1264,6 +1657,16 @@ def main() -> int:
         t = time.perf_counter()
         phase_cli_small(torch, np, tmp)
         log(f"[cli-small] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        syn_launches, syn_calls = phase_synthetic_cli(torch, np, tmp, counters)
+        log(f"[cli] runs F, G, H {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    gens = phase_synthetic_gens(torch, np, dev)
+    log(f"[synthetic-gens] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    thres = phase_thres(torch, np, dev)
+    log(f"[thres] {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     phase_variants_small(torch, np, dev)
@@ -1282,7 +1685,14 @@ def main() -> int:
     log(f"[k1] run A shape {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
+    k1["run_f"] = phase_k1_run_f(torch, syn_calls["F"], syn_launches["F"]["refractory_scan"])
+    k1["launches_run_f"] = syn_launches["F"]["refractory_scan"]
+    log(f"[k1] run F shape {time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
     k2 = phase_k2(torch, dev, cli_shapes["B"]["scan"], cli_launches["B"]["scan"])
+    k2["launches_run_h"] = syn_launches["H"]["scan"]
+    k2["run_h"] = phase_k2_run_h(torch, dev, syn_calls["H"], k2["launches_run_h"])
     log(f"[k2] {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
@@ -1300,6 +1710,8 @@ def main() -> int:
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log("[variants] " + json.dumps({"variants": variants, "resume": resume,
                                     "run_launches": {k: cli_launches[k] for k in "DE"}}))
+    log("[synthetic] " + json.dumps({"generators": gens, "thres": thres, "h2d_bytes": h2d,
+                                     "run_launches": syn_launches}))
     log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """The port's CLI (v2e_tpu_torch.cli) on the CPU: its video and AEDAT-2
 outputs, the flags it turns away with a non-zero exit (each names the
-ROADMAP item that will port its path), the emulator-variant flags it
-runs, and its import boundary (no jax, no v2e_tpu).  test_torch_cli.py
+ROADMAP item that will port its path), the emulator-variant flags and the
+synthetic input it runs, and its import boundary (no jax, no v2e_tpu).  test_torch_cli.py
 holds the CLI against the JAX package's.
 """
 import logging
@@ -55,7 +55,6 @@ def test_cli_writes_videos_and_aedat(frames_dir, tmp_path):
     ["--dvs_h5", "ev.h5"],
     ["--dvs_aedat4", "ev.aedat4"],
     ["--ddd_output"],
-    ["--synthetic_input", "scripts.moving_dot"],
     ["--slomo_use_saved"],
     ["--slomo_stats_plot"],
     ["--devices", "2"],
@@ -80,13 +79,15 @@ def ran_and_wrote(out, names):
      ["ev.txt", "diff_frame.avi"]),
     (["--checkpoint_state", "{tmp}/s.npz"], ["ev.txt", "{tmp}/s.npz"]),
     (["--resume_state", "{tmp}/first.npz"], ["ev.txt"]),
+    (["--synthetic_input", "scripts.moving_dot", "--cycles", "0.01"], ["ev.txt"]),
 ], ids=["scidvs", "cs_lambda_pixels", "save_dvs_model_state", "checkpoint_state",
-        "resume_state"])
+        "resume_state", "synthetic_input"])
 def test_ported_variant_flags_run(frames_dir, tmp_path, flags, outputs):
-    """The emulator-variant flags the port runs: each exits 0 and writes its
-    output (the events, the state video, the checkpoint).  A resume needs a
-    checkpoint whose last frame time is 0, as the conversion's frame times
-    start at 0: one of the first frame alone."""
+    """The emulator-variant flags and the synthetic input the port runs:
+    each exits 0 and writes its output (the events, the state video, the
+    checkpoint; a synthetic input takes the place of the input folder).  A
+    resume needs a checkpoint whose last frame time is 0, as the
+    conversion's frame times start at 0: one of the first frame alone."""
     base = ["-i", frames_dir, "--input_frame_rate", "30", "--disable_slomo",
             "--skip_video_output", "--dvs_text", "ev.txt"]
     assert cli.main(base + ["-o", str(tmp_path / "first"), "--stop_time", "0.04",
@@ -133,6 +134,15 @@ def test_profile_writes_a_trace(frames_dir, tmp_path):
     assert os.path.getsize(out / "torch-trace" / "trace.json") > 0
 
 
+def test_profile_wraps_the_synthetic_run(tmp_path):
+    out = tmp_path / "out"
+    stats = cli.run(["--synthetic_input", "scripts.moving_dot", "--cycles", "0.005",
+                     "--output_width", "96", "--output_height", "80", "--radius", "30",
+                     "-o", str(out), "--skip_video_output", "--profile"], device="cpu")
+    assert stats.n_frames == 10 and stats.num_events > 0
+    assert os.path.getsize(out / "torch-trace" / "trace.json") > 0
+
+
 def test_command_line_needs_a_card(frames_dir, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -142,7 +152,10 @@ def test_command_line_needs_a_card(frames_dir, tmp_path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
-        "import sys, v2e_tpu_torch.cli, v2e_tpu_torch.__main__;"
+        "import sys, v2e_tpu_torch.cli, v2e_tpu_torch.__main__, v2e_tpu_torch.synthetic,"
+        " v2e_tpu_torch.synthetic.device, v2e_tpu_torch.analysis.thres_estimator;"
+        "from v2e_tpu_torch.synthetic import moving_dot, single_linearly_moving_dot, spots,"
+        " barberpole, gradients, particles;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e_tpu'));"
         "print(bad); sys.exit(1 if bad else 0)"
     )

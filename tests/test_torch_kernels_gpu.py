@@ -15,6 +15,10 @@ to 4e-6 at values near 1e-4), with at most 0.5 % of the elements differing
 off.  The emulator's variant paths (SciDVS, CSDVS, the per-frame path)
 have no kernel: they are held card against CPU at the tolerances of
 test_torch_variants.py, and a checkpoint's resume on the card bit for bit.
+The synthetic renderers on the card equal the port's host generators
+(particles within 1e-3 of its float64 painter, two float32 ulps of the
+CPU renderer), and the CLI's synthetic device path gives the CPU's events
+with K1 and with K2.
 """
 import pytest
 import torch
@@ -460,3 +464,83 @@ def test_resume_on_card_equals_continuous_run(cuda, tmp_path, variant):
         if getattr(cont.state, f.name) is not None:
             assert torch.equal(getattr(resumed.state, f.name), getattr(cont.state, f.name))
     assert (refractory_scan.launches > k1) == (not variant)
+
+
+# the synthetic renderers at the sizes of test_torch_synthetic.py:
+# (width, height, arg_list, frames)
+SYNTHETIC = {
+    "moving_dot": (96, 80, ["--t_total", "0.005", "--radius", "30"], None),
+    "single_linearly_moving_dot": (96, 64, [], 50),
+    "spots": (96, 64, ["--total_time", "0.004"], None),
+    "barberpole": (96, 64, ["--total_time", "0.002"], None),
+    "gradients": (96, 32, ["--total_time", "0.003"], None),
+    "particles": (96, 64, ["--total_time", "0.002", "--num_particles", "40"], None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SYNTHETIC))
+def test_synthetic_renderers_on_card_match_host(cuda, monkeypatch, name):
+    """Each renderer on the card against the port's host generator: the
+    uint8-level stimuli equal; particles (float32 centers against the host's
+    float64 positions) within 1e-3 (a lost or extra dot would be off by up
+    to 31.75), and within two
+    float32 ulps of the CPU renderer on the same centers."""
+    import importlib
+
+    import numpy as np
+
+    real = np.random.default_rng
+    monkeypatch.setattr(np.random, "default_rng", lambda *a, **k: real(7))
+    w, h, args, n = SYNTHETIC[name]
+    cls = getattr(importlib.import_module(f"v2e_tpu_torch.synthetic.{name}"), name)
+    host_syn, syn = (cls(width=w, height=h, arg_list=args) for _ in range(2))
+    frames, ts = [], []
+    for _ in range(host_syn.total_frames() if n is None else n):
+        fr, t = host_syn.next_frame()
+        frames.append(np.asarray(fr, dtype=np.float32))
+        ts.append(t)
+    host, ts = np.stack(frames), np.array(ts)
+    got = syn.device_frames(ts, cuda)
+    assert got.device.type == "cuda" and got.is_contiguous()
+    got = got.cpu().numpy()
+    if name != "particles":
+        np.testing.assert_array_equal(got, host)
+        return
+    from v2e_tpu_torch.synthetic.device import particles_frames
+
+    np.testing.assert_allclose(got, host, atol=1e-3, rtol=0)
+    centers = cls(width=w, height=h, arg_list=args).trajectory(ts)
+    args = (w, h, float(syn.fg), float(syn.bg), float(syn.radius), 2.0, 3)
+    np.testing.assert_array_max_ulp(particles_frames(centers, *args, device=cuda).cpu().numpy(),
+                                    particles_frames(centers, *args, device="cpu").numpy(),
+                                    maxulp=2)
+
+
+@pytest.mark.parametrize("refractory", ["0.0005", "0"], ids=["k1", "k2"])
+def test_synthetic_cli_device_path_on_card_matches_cpu(cuda, tmp_path, refractory):
+    """The CLI's synthetic device path (frames rendered where the emulator
+    runs) on the card and on the CPU, event for event, under the
+    deterministic flags (the presets' threshold mismatch comes from the
+    device's generator, Philox on the card and the CPU's own, which
+    differ), with K1 (0.5 ms refractory period) and with K2."""
+    import numpy as np
+
+    from v2e_tpu_torch import cli
+    from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan as k1, scan as k2
+
+    flags = ["--synthetic_input", "scripts.moving_dot", "--output_width", "96",
+             "--output_height", "80", "--cycles", "0.02", "--radius", "30",
+             "--dvs_text", "v2e.txt", "--skip_video_output", "--no_shuffle",
+             "--sigma_thres", "0", "--leak_rate_hz", "0", "--shot_noise_rate_hz", "0",
+             "--cutoff_hz", "0", "--refractory_period", refractory]
+    kernel = k1 if refractory != "0" else k2
+    before = kernel.launches
+    events = {}
+    for device in ("cuda", "cpu"):
+        out = tmp_path / device
+        stats = cli.run(flags + ["-o", str(out)], device=device)
+        assert stats.n_frames == 38
+        events[device] = np.loadtxt(out / "v2e.txt", comments="#").reshape(-1, 4)
+    assert kernel.launches > before
+    assert len(events["cpu"]) > 300
+    np.testing.assert_array_equal(events["cuda"], events["cpu"])

@@ -2,8 +2,10 @@
 simulation) for NVIDIA Hopper.
 
 The command line is ``python -m v2e_tpu_torch -i <video or image folder>``
-(cli.py), with v2e's flags.  The package mirrors v2e_tpu's layout (ops/,
-emulator/, models/, io/, render/, utils/, fused.py, args.py) and keeps its public layouts ([F,H,W] frames, [N,2,H,W] flow), so
+or ``--synthetic_input <generator module>`` (cli.py), with v2e's flags.
+The package mirrors v2e_tpu's layout (ops/, emulator/, models/, io/,
+render/, synthetic/, analysis/, utils/, fused.py, args.py) and keeps its
+public layouts ([F,H,W] frames, [N,2,H,W] flow), so
 every ported function can be held against its JAX counterpart.  The TPU's
 Pallas kernels become CUDA C++ kernels under csrc/, built with nvcc on first
 use and bound through ctypes (ops/kernels/).  Each kernel wrapper runs its

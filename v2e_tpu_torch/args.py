@@ -333,7 +333,6 @@ def v2e_check_dvs_exposure_args(args):
 # turns away
 _SINKS = "sinks and readers"
 _SLOMO = "SloMo rest"
-_SYNTHETIC = "synthetic inputs"
 _PARALLEL = "parallel (multi-GPU)"
 
 # (flag, whether the parsed value asks for the path, ROADMAP item)
@@ -343,7 +342,6 @@ _NOT_PORTED = (
     ("--dvs_aedat4", lambda a: a.dvs_aedat4 is not None, _SINKS),
     ("--slomo_use_saved", lambda a: a.slomo_use_saved, _SLOMO),
     ("--slomo_stats_plot", lambda a: a.slomo_stats_plot, _SLOMO + " (needs matplotlib)"),
-    ("--synthetic_input", lambda a: a.synthetic_input is not None, _SYNTHETIC),
     ("--devices", lambda a: a.devices != 1, _PARALLEL),
     ("--parallel_mode", lambda a: a.parallel_mode != "pixel", _PARALLEL),
     ("--segment_warmup", lambda a: a.segment_warmup != 8, _PARALLEL),

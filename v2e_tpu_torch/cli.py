@@ -1,7 +1,7 @@
-"""The v2e command-line conversion on the port (port of v2e_tpu/cli.py's
-video path):
+"""The v2e command-line conversion on the port (port of v2e_tpu/cli.py):
 
     python -m v2e_tpu_torch -i <video file or image folder> [v2e flags]
+    python -m v2e_tpu_torch --synthetic_input scripts.moving_dot [v2e flags]
 
 Same flags and defaults as the JAX package's CLI (args.py).  Source frames
 are read with cv2 (an image folder needs --input_frame_rate), cropped,
@@ -11,7 +11,10 @@ fed straight to the emulator (`_run_direct`).  Events go to the AEDAT-2
 and text sinks and the DVS video renderer; the pixel variants (--scidvs,
 --cs_lambda_pixels), the single-pixel probe and the model-state videos go
 to the emulator, and --resume_state / --checkpoint_state load the
-emulator's state before the conversion and save it after.
+emulator's state before the conversion and save it after.  A synthetic
+input (synthetic/) is a generator class named by module path; its frames
+go straight to the emulator, rendered on the device chunk by chunk when no
+input AVI is written (`_run_synthetic`).
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the plain PyTorch
 versions of the kernels on the CPU (the tests do).  Flags whose path is not
@@ -118,8 +121,9 @@ def run(argv: Optional[List[str]] = None, device=None) -> Stats:
     missing = check_ported(args)
     if missing is not None:
         raise UsageError(missing, 2)
-    if args.input is None:
-        raise UsageError("specify --input video file or image folder", 1)
+    if args.input is None and args.synthetic_input is None:
+        raise UsageError("specify --input video file or image folder, or "
+                         "--synthetic_input module", 1)
     log_layout_flags(args)
     dev = resolve_device(device)
 
@@ -132,8 +136,14 @@ def run(argv: Optional[List[str]] = None, device=None) -> Stats:
     output_width, output_height = set_size_from_camera(args)
     exposure = v2e_check_dvs_exposure_args(args)
 
-    if not args.profile:
+    def convert() -> Stats:
+        if args.synthetic_input is not None:
+            return _run_synthetic(args, other_args, output_folder, output_width,
+                                  output_height, exposure, dev)
         return _run_video(args, output_folder, output_width, output_height, exposure, dev)
+
+    if not args.profile:
+        return convert()
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -144,7 +154,7 @@ def run(argv: Optional[List[str]] = None, device=None) -> Stats:
     os.makedirs(trace_dir, exist_ok=True)
     logger.info(f"capturing a torch.profiler trace to {trace_dir}")
     with profile(activities=activities) as prof:
-        stats = _run_video(args, output_folder, output_width, output_height, exposure, dev)
+        stats = convert()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
@@ -289,18 +299,74 @@ def _run_video(args, output_folder, output_width, output_height, exposure, devic
     return _finish(args, emulator, renderer, stats)
 
 
-def _run_direct(args, frames_iter, frame_interval, emulator, renderer,
-                exposure_mode, width, height, stats: Stats) -> None:
-    """--disable_slomo: source frames go straight into the emulator, in
-    chunks of --chunk_size frames."""
+def _run_synthetic(args, other_args, output_folder, output_width, output_height,
+                   exposure, device) -> Stats:
+    """--synthetic_input: the generator's frames go straight into the
+    emulator.  With no input AVI to write, a generator that has
+    `device_frames` renders each chunk on `device` and only the chunk's
+    times travel there; otherwise `next_frame`'s host frames are stacked
+    into chunks of --chunk_size."""
+    from tqdm import tqdm
+
+    from v2e_tpu_torch.synthetic import load_synthetic_input
+
+    if output_width is None or output_height is None:
+        output_width, output_height = 346, 260
+    cls = load_synthetic_input(args.synthetic_input)
+    avi_path = (None if args.skip_video_output or args.vid_orig is None
+                else os.path.join(output_folder, args.vid_orig))
+    syn = cls(width=output_width, height=output_height, avi_path=avi_path,
+              preview=False, arg_list=other_args, parent_args=args)
+
+    emulator = _make_emulator(args, output_folder, output_width, output_height, device)
+    renderer = _make_renderer(args, output_folder, exposure)
+    stats = Stats()
+    pipeline = _make_pipeline(args, emulator, renderer, exposure[0], output_width,
+                              output_height)
+    pbar = tqdm(total=syn.total_frames(), desc="synthetic", unit="fr")
+    try:
+        if avi_path is None and hasattr(syn, "device_frames"):
+            times = np.asarray(syn.times, dtype=np.float64)
+            stats.first_ts, stats.last_ts = float(times[0]), float(times[-1])
+            stats.n_frames = len(times)
+            for s in range(0, len(times), args.chunk_size):
+                blk = times[s: s + args.chunk_size]
+                pipeline.push(syn.device_frames(blk, device), blk)
+                pbar.update(len(blk))
+        else:
+            _push_frames(pipeline, _host_frames(syn), args.chunk_size, stats, pbar)
+    finally:
+        pipeline.close()
+        pbar.close()
+        syn.cleanup()
+    return _finish(args, emulator, renderer, stats)
+
+
+def _make_pipeline(args, emulator, renderer, exposure_mode, width, height):
+    """The emulator's chunk pipeline, its events fed to the renderer."""
     from v2e_tpu_torch.emulator.pipeline import ChunkPipeline
 
-    pipeline = ChunkPipeline(
+    return ChunkPipeline(
         emulator,
         lambda ev, lab, off: _feed_renderer(
             renderer, ev, off, exposure_mode, height, width, args.skip_video_output
         ),
     )
+
+
+def _host_frames(syn):
+    """`syn.next_frame()`'s (frame, time) pairs up to its end."""
+    while True:
+        frame, t = syn.next_frame()
+        if frame is None:
+            return
+        yield np.asarray(frame), float(t)
+
+
+def _push_frames(pipeline, frames_and_times, chunk_size: int, stats: Stats,
+                 pbar=None) -> None:
+    """(frame, time) pairs, stacked into chunks of `chunk_size` frames and
+    pushed into `pipeline`."""
     chunk: List[np.ndarray] = []
     times: List[float] = []
 
@@ -310,18 +376,29 @@ def _run_direct(args, frames_iter, frame_interval, emulator, renderer,
             chunk.clear()
             times.clear()
 
+    for frame, t in frames_and_times:
+        if stats.first_ts is None:
+            stats.first_ts = t
+        stats.last_ts = t
+        stats.n_frames += 1
+        chunk.append(frame)
+        times.append(t)
+        if len(chunk) >= chunk_size:
+            flush()
+        if pbar is not None:
+            pbar.update(1)
+    flush()
+
+
+def _run_direct(args, frames_iter, frame_interval, emulator, renderer,
+                exposure_mode, width, height, stats: Stats) -> None:
+    """--disable_slomo: source frames go straight into the emulator, in
+    chunks of --chunk_size frames."""
+    pipeline = _make_pipeline(args, emulator, renderer, exposure_mode, width, height)
     try:
-        for idx, frame in enumerate(frames_iter):
-            t = idx * frame_interval
-            if stats.first_ts is None:
-                stats.first_ts = t
-            stats.last_ts = t
-            stats.n_frames += 1
-            chunk.append(frame)
-            times.append(t)
-            if len(chunk) >= args.chunk_size:
-                flush()
-        flush()
+        _push_frames(pipeline, ((frame, idx * frame_interval)
+                                for idx, frame in enumerate(frames_iter)),
+                     args.chunk_size, stats)
     finally:
         pipeline.close()
 
