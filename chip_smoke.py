@@ -5,7 +5,9 @@
 
 Phases, each printed on its own line with its seconds:
   0. the card's name and power limit (nvidia-smi);
-  1. build of the CUDA kernels with nvcc (sm_90a) into v2e_tpu_torch/_build;
+  1. build of the CUDA kernels with nvcc (sm_90a) into v2e_tpu_torch/_build,
+     and of the native host library with g++ (`[native]`; fails if it does
+     not build or load);
   2. K1 (refractory scan) against its plain PyTorch version at the main
      path's shape and frame interval (160 frames of 260x346 at 1/300 s,
      leak and shot noise on, R=0.5 ms), with a high-contrast moving bar so
@@ -41,10 +43,26 @@ Phases, each printed on its own line with its seconds:
           (--show_dvs_model_state all --save_dvs_model_state): the
           per-frame path, K3 only; one probe sample per emulated frame in
           pixel-states.dat and 8 non-empty state videos;
+       I. run A's flags and --dvs_aedat4: the AEDAT-4 file read back with
+          the port's readers equals the run's AEDAT-2 stream event for
+          event (t in us, x, y, p) and its seek table's element counts sum
+          to the run's events;
      each with the kernels' launch counters set to 0 before and read after,
+     runs A and I with the native host library's call counts read the same
+     way (events, AEDAT-2 words and the DVS video's histogram through the
+     library, no numpy fallback),
      and its outputs checked (AEDAT-2 payload of 8 B per event, event times
      inside the input's span, non-empty videos in run A); then run A once
-     more under torch.profiler for its device time (not counted); and runs
+     more under torch.profiler for its device time (not counted); then
+     `[native]`: the library's six functions against their numpy versions,
+     bit for bit, on run A's data (materialize_sparse on its recorded
+     compacted chunks, pack_aedat2 and hist2d_accumulate on its events,
+     area_count_scan at --dvs_exposure area_count 500 64,
+     materialize_frame and count_frame_events on its busiest frame's
+     346x260 count map), each timed on the host beside the host's CPU
+     model; `[h5]`: where h5py imports, --dvs_h5 --ddd_output and a
+     --slomo_use_saved record and replay through the CLI, else one line
+     saying they were not run; and runs
      A, B, B with --unet_conv packedz and B with --unet_conv packedfold45
      at 64x96 with the golden weights on the card and on the CPU, which
      must agree; then the emulator's variants: SciDVS, CSDVS exact and
@@ -110,7 +128,8 @@ Phases, each printed on its own line with its seconds:
      0.5 ms (the filter acts on every pixel that fires).
 
 Then a JSON line of the variant phases' numbers, one of the synthetic
-phases' numbers, one JSON line with every kernel's numbers (K1's launches
+phases' numbers, one of the native host library's (host ms, CPU model),
+one JSON line with every kernel's numbers (K1's launches
 in run F and K2's in run H beside those of the fused chunk and run B), the
 nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
@@ -154,6 +173,41 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def cpu_model() -> str:
+    """The host CPU's model name as lscpu (else /proc/cpuinfo) gives it,
+    printed beside host timings; where the machine hides it ("unknown" in
+    a sandbox), with the vendor, family, model number, clock and CPU count
+    that /proc/cpuinfo still shows."""
+    texts = []
+    try:
+        texts.append(subprocess.run(["lscpu"], capture_output=True, text=True,
+                                    check=True).stdout)
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            text = f.read()
+        texts.append(text)
+        for line in text.split("\n\n")[0].splitlines():
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = "unknown"
+    for text in texts:
+        for line in text.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip().lower() == "model name" and value.strip():
+                name = value.strip()
+                break
+        if name != "unknown":
+            return name
+    detail = ", ".join(f"{k} {info[k]}" for k in ("vendor_id", "cpu family", "model", "cpu MHz")
+                       if k in info)
+    return f"{name} ({detail}, {os.cpu_count()} CPUs)" if detail else name
 
 
 def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_OPS_S):
@@ -591,13 +645,68 @@ def read_aedat2(path):
     return len(data) - header
 
 
+def aedat2_events(np, path):
+    """A 346x260 AEDAT-2 file's events [N,4] int64 (t us, x, y, p 0/1)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    header = 0
+    while data[header: header + 1] == b"#":
+        header = data.index(b"\r\n", header) + 2
+    words = np.frombuffer(data[header:], dtype=">i4").astype(np.int64).reshape(-1, 2)
+    a = words[:, 0]
+    x = W - 1 - ((a >> 12) & 0x3FF)
+    y = H - 1 - ((a >> 22) & 0x1FF)
+    return np.stack([words[:, 1], x, y, (a >> 11) & 1], axis=1)
+
+
+def check_run_i(np, out, n_events):
+    """Run I's AEDAT-4 file read back: the AEDAT-2 stream event for event
+    (from the first event the AEDAT-2 sink kept), and the seek table's
+    element counts summing to the total."""
+    from v2e_tpu_torch.io.aedat4 import read_aedat4, read_aedat4_data_table
+
+    ev4 = read_aedat4(os.path.join(out, "i.aedat4"))
+    ev4 = np.stack([np.rint(ev4[:, 0] * 1e6), ev4[:, 1], ev4[:, 2], ev4[:, 3] > 0],
+                   axis=1).astype(np.int64)
+    ev2 = aedat2_events(np, os.path.join(out, "i.aedat"))
+    dropped = len(ev4) - len(ev2)
+    table = read_aedat4_data_table(os.path.join(out, "i.aedat4"))
+    counted = sum(e["num_elements"] for e in table)
+    if len(ev4) != n_events or counted != n_events or not 0 <= dropped <= 4:
+        raise AssertionError(f"run I: AEDAT-4 {len(ev4)} events, table {counted}, "
+                             f"AEDAT-2 {len(ev2)}, run {n_events}")
+    if not np.array_equal(ev4[dropped:], ev2):
+        bad = int((ev4[dropped:] != ev2).any(axis=1).sum())
+        raise AssertionError(f"run I: {bad} AEDAT-4 events differ from the AEDAT-2 stream")
+    return len(table)
+
+
+class SparseRecorder:
+    """Wraps native.materialize_sparse to keep each call's arguments (the
+    shuffle's generator copied before the call) for the [native] phase."""
+
+    def __init__(self, native):
+        self.native, self.inner, self.calls = native, native.materialize_sparse, []
+
+    def __enter__(self):
+        self.native.materialize_sparse = self
+        return self
+
+    def __exit__(self, *exc):
+        self.native.materialize_sparse = self.inner
+
+    def __call__(self, *args):
+        self.calls.append(copy.deepcopy(args))
+        return self.inner(*args)
+
+
 def phase_cli(torch, np, tmp, counters):
-    """The port's CLI, runs A, B and C, then run A once more under
+    """The port's CLI, runs A-E and I, then run A once more under
     torch.profiler (its launches not counted).  Returns {run: launches by
-    kernel} and {run: the last [N,H,W] (and max_base) each kernel of the
+    kernel}, {run: the last [N,H,W] (and max_base) each kernel of the
     run was launched with; for K5 every ((N,H,W,Ci), Co) with its
-    launches}."""
-    from v2e_tpu_torch import cli
+    launches}, and run A's materialize_sparse calls (their arguments)."""
+    from v2e_tpu_torch import cli, native
     from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane
 
     src = os.path.join(tmp, "frames")
@@ -614,28 +723,39 @@ def phase_cli(torch, np, tmp, counters):
     runs["C"] = runs["B"][:-1] + ["c.aedat", "--unet_conv", "packedz"]
     runs["D"] = runs["B"][:-1] + ["d.aedat", "--scidvs"]
     runs["E"] = runs["B"][:-1] + ["e.aedat"] + VARIANT_E
+    runs["I"] = ([{"a.aedat": "i.aedat", "a.txt": "i.txt"}.get(f, f) for f in runs["A"]]
+                 + ["--dvs_aedat4", "i.aedat4"])
     want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp"),
             "C": ("scan", "bilinear_warp", "conv3x3_lane"), "D": ("bilinear_warp",),
             "E": ("bilinear_warp",)}
-    walls, events = {}, {}
+    want["I"] = want["A"]
+    walls, events, rtfs = {}, {}, {}
     absent = {"A": ("bilinear_warp", "scan", "conv3x3_lane"),
               "B": ("warp_tiled", "refractory_scan", "conv3x3_lane"),
               "C": ("warp_tiled", "refractory_scan"),
               "D": ("warp_tiled", "refractory_scan", "scan", "conv3x3_lane"),
               "E": ("warp_tiled", "refractory_scan", "scan", "conv3x3_lane")}
+    absent["I"] = absent["A"]
     launches, shapes, n_frames = {}, {}, {}
+    recorder = SparseRecorder(native)
     for name, flags in runs.items():
         out = os.path.join(tmp, "out" + name)
         argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
         for fn in counters.values():
             fn.launches = 0
         conv3x3_lane.shapes = {}
+        native.calls.clear()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        stats = cli.run(argv, device="cuda")
+        if name == "A":
+            with recorder:
+                stats = cli.run(argv, device="cuda")
+        else:
+            stats = cli.run(argv, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[name] = {k: fn.launches for k, fn in counters.items()}
+        host_calls = dict(native.calls)
         shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
         if name == "A":
             shapes[name]["refractory_scan"] = counters["refractory_scan"].last_call[0]
@@ -643,8 +763,17 @@ def phase_cli(torch, np, tmp, counters):
         if name == "C":
             shapes[name]["conv3x3_lane"] = dict(conv3x3_lane.shapes)
         walls[name] = wall
+        rtfs[name] = stats.realtime_factor
         events[name] = stats.num_events
         n_frames[name] = stats.n_frames
+        if name in "AI":
+            # the host half runs in the native library: events, AEDAT-2
+            # words and the DVS video's histogram, with no numpy fallback
+            used = {f for f, path in host_calls if path == "native"}
+            fallback = {f for f, path in host_calls if path == "numpy"}
+            if fallback or not {"materialize_sparse", "pack_aedat2",
+                                "hist2d_accumulate"} <= used:
+                raise AssertionError(f"run {name}: host calls {host_calls}")
         aedat = os.path.join(out, name.lower() + ".aedat")
         payload = read_aedat2(aedat)
         # the sink drops leading events whose first byte would be '#' (a
@@ -656,18 +785,20 @@ def phase_cli(torch, np, tmp, counters):
         if not (stats.first_ts >= 0.0 and stats.last_ts <= span + 1e-9):
             raise AssertionError(f"run {name}: frame times {stats.first_ts}-{stats.last_ts} "
                                  f"outside the input's 0-{span} s")
-        if name == "A":
-            ev = np.loadtxt(os.path.join(out, "a.txt"), comments="#", usecols=0)
+        if name in "AI":
+            ev = np.loadtxt(os.path.join(out, name.lower() + ".txt"), comments="#", usecols=0)
             if not (ev.min() >= -1e-6 and ev.max() <= span + 1e-6):
                 raise AssertionError(f"run A: event times {ev.min()}-{ev.max()} outside 0-{span} s")
             for vid in ("dvs-video.avi", "video_orig.avi", "video_slomo.avi"):
                 if os.path.getsize(os.path.join(out, vid)) <= 0:
                     raise AssertionError(f"run A: {vid} is empty")
-        if name == "A" and (min(stats.upsampling) <= 32 or stats.fused_chunks):
+        if name in "AI" and (min(stats.upsampling) <= 32 or stats.fused_chunks):
             raise AssertionError(f"run A: U {stats.upsampling}, {stats.fused_chunks} fused "
                                  "chunks; wants U > 32 and every chunk staged")
         if name == "E":
             check_run_e(np, out, stats)
+        if name == "I":
+            n_packets = check_run_i(np, out, stats.num_events)
         if name in "BCDE" and (set(stats.upsampling) != {RUN_B_U} or not stats.fused_chunks):
             raise AssertionError(f"run {name}: U {stats.upsampling}, {stats.fused_chunks} "
                                  "fused chunks; wants U = 12 and fused chunks")
@@ -681,7 +812,14 @@ def phase_cli(torch, np, tmp, counters):
             + f"; {stats.n_frames} frames, {stats.num_events} events, AEDAT-2 "
             f"{payload} B ({dropped} leading events dropped by the '#' guard); "
             f"wall {wall:.2f} s, realtime factor "
-            f"{stats.realtime_factor:.4f} (cli {stats.wall_s:.2f} s)")
+            f"{stats.realtime_factor:.4f} (cli {stats.wall_s:.2f} s)"
+            + (f"; host calls {sorted(host_calls.items())}" if name in "AI" else ""))
+    log(f"[cli] run A with the native host library: wall {walls['A']:.2f} s, realtime "
+        f"factor {rtfs['A']:.4f} (PR 10, numpy host path: 9.86-10.57 s); "
+        f"host CPU {cpu_model()}")
+    log(f"[cli] run I (run A + --dvs_aedat4): wall {walls['I']:.2f} s, realtime factor "
+        f"{rtfs['I']:.4f}, {events['I']} events read back from i.aedat4 equal to "
+        f"i.aedat, {n_packets} packets in its seek table")
     log(f"[cli] run D (SciDVS): events D {events['D']} vs B {events['B']}; run E "
         f"(CSDVS, probe, 8 state videos): {walls['E'] / n_frames['E'] * 1e3:.3f} ms of CLI "
         f"wall per interpolated frame (SloMo, the per-frame path and the state videos' "
@@ -695,7 +833,141 @@ def phase_cli(torch, np, tmp, counters):
     argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", os.path.join(tmp, "outP")]
     profile_device(torch, "cli-profile", lambda: cli.run(argv + runs["A"], device="cuda"),
                    walls["A"] * 1e3, "run A again", top=8)
-    return launches, shapes
+    return launches, shapes, recorder.calls
+
+
+AREA_COUNT = (500, 64)  # --dvs_exposure area_count 500 64: events, area size
+
+
+def phase_native(np, calls):
+    """The native host library's six functions against their numpy
+    versions, bit for bit, on run A's data: materialize_sparse on each of
+    its compacted chunks (the recorded calls, the shuffle's generator
+    copied), pack_aedat2 and hist2d_accumulate on all its events,
+    area_count_scan over them at --dvs_exposure area_count 500 64, and
+    materialize_frame with count_frame_events on the 346x260 count map of
+    its busiest frame.  Returns {function: (native ms, numpy ms)} on the
+    card's host."""
+    from v2e_tpu_torch import native
+    from v2e_tpu_torch.emulator.events import (
+        materialize_events_sparse_numpy,
+        materialize_frame_numpy,
+    )
+    from v2e_tpu_torch.io.aedat2 import pack_aedat2_numpy
+    from v2e_tpu_torch.render.renderer import accumulate_histogram_numpy, area_count_scan_numpy
+
+    ms = {}
+
+    def both(name, run_native, run_numpy):
+        t = time.perf_counter()
+        a = run_native()
+        t_native = time.perf_counter() - t
+        t = time.perf_counter()
+        b = run_numpy()
+        t_numpy = time.perf_counter() - t
+        prev = ms.get(name, (0.0, 0.0))
+        ms[name] = (prev[0] + t_native * 1e3, prev[1] + t_numpy * 1e3)
+        pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+        if not all(np.array_equal(x, y) for x, y in pairs):
+            raise AssertionError(f"[native] {name}: the library differs from numpy")
+        return a
+
+    if not calls:
+        raise AssertionError("[native] run A recorded no materialize_sparse call")
+    parts = []
+    for args in calls:
+        *head, rng, label = args
+        ev = both("materialize_sparse",
+                  lambda: native.materialize_sparse(*head, copy.deepcopy(rng), label),
+                  lambda: materialize_events_sparse_numpy(*head, copy.deepcopy(rng), label))
+        parts.append(ev[0])
+    events = np.concatenate(parts)
+    shifts = (W, H, 12, 22, 11)  # 346x260: x<<12, y<<22, pol<<11
+    both("pack_aedat2", lambda: native.pack_aedat2(events, *shifts, True),
+         lambda: pack_aedat2_numpy(events, *shifts, True, True))
+
+    def hist(fn):
+        frame = np.zeros((H, W), np.float32)
+        fn(frame, events, 2.0)
+        return frame
+
+    both("hist2d_accumulate", lambda: hist(native.hist2d_accumulate),
+         lambda: hist(accumulate_histogram_numpy))
+    count, dim = AREA_COUNT
+
+    def scan(fn):
+        counts = np.zeros((1 + W // dim, 1 + H // dim), np.int64)
+        ends, start = [], 0
+        while start < events.shape[0]:
+            ends.append(fn(events, start, dim, count, counts))
+            start = ends[-1] + 1
+        return np.array(ends), counts
+
+    ends = both("area_count_scan", lambda: scan(native.area_count_scan),
+                lambda: scan(area_count_scan_numpy))[0]
+
+    # the busiest frame of the busiest chunk as a dense 346x260 count map
+    idx, cnt, i0, shot, stride, K, t0, tf, _, h, w = max(calls, key=lambda c: len(c[0]))[:11]
+    frame_of = idx // (h * w)
+    f = int(np.bincount(frame_of).argmax())
+    sel = frame_of == f
+    pix = idx[sel] % (h * w)
+    c_map, i_map = np.zeros(h * w, np.int16), np.zeros(h * w, np.int16)
+    on, off = np.zeros(h * w, bool), np.zeros(h * w, bool)
+    c_map[pix], i_map[pix] = cnt[sel], i0[sel]
+    if shot is not None:
+        on[pix], off[pix] = (shot[sel] & 1) > 0, (shot[sel] & 2) > 0
+    maps = [m.reshape(h, w) for m in (c_map, i_map, on, off)]
+    st, k, tp, tfr = int(stride[f]), int(K[f]), float(t0[f]), float(tf[f])
+    step = (tfr - tp) / max(k, 1)
+    frame_ev = both(
+        "materialize_frame",
+        lambda: native.materialize_frame(maps[0], maps[1], st, k, tp, step, tfr, maps[2],
+                                         maps[3], True),
+        lambda: materialize_frame_numpy(maps[0], maps[1], st, k, tp, tfr, maps[2], maps[3],
+                                        None, True))[0]
+    both("count_frame_events", lambda: native.count_frame_events(maps[0], maps[2], maps[3]),
+         lambda: int(np.abs(c_map.astype(np.int64)).sum() + on.sum() + off.sum()))
+    log(f"[native] run A's {len(calls)} chunks, {events.shape[0]} events; "
+        f"{len(ends)} area_count frames; frame {f} of {h}x{w}: {frame_ev.shape[0]} events; "
+        "every function equal to its numpy version; host CPU " + cpu_model())
+    for name, (a, b) in ms.items():
+        log(f"[native] {name}: native {a:.3f} ms, numpy {b:.3f} ms ({b / max(a, 1e-9):.1f}x)")
+    return {name: {"native_ms": a, "numpy_ms": b} for name, (a, b) in ms.items()}
+
+
+def phase_h5(np, tmp, device="cuda"):
+    """--dvs_h5 with --ddd_output and --slomo_use_saved through the CLI on
+    phase_cli's input, where h5py imports: a first run records the SloMo
+    cache and writes every event and frame to the HDF5 file, a second
+    replays the cache and must give the same events.  Without h5py one line
+    says they were not run."""
+    try:
+        import h5py
+    except ImportError as e:
+        log(f"[h5] --dvs_h5, --ddd_output and --slomo_use_saved not run: h5py does not "
+            f"import on this machine ({e}); the CPU tests hold them")
+        return
+    from v2e_tpu_torch import cli
+
+    base = ["-i", os.path.join(tmp, "frames"), "--input_frame_rate", str(SRC_FPS),
+            "--allow_random_slomo", "--auto_timestamp_resolution", "False",
+            "--timestamp_resolution", "0.003", "--skip_video_output", "--no_shuffle",
+            "--sigma_thres", "0", "--leak_rate_hz", "0", "--shot_noise_rate_hz", "0",
+            "--dvs_text", "j.txt", "--slomo_use_saved"]
+    out = [os.path.join(tmp, "h5", name) for name in ("first", "replay")]
+    first = cli.run(base + ["-o", out[0], "--dvs_h5", "j.h5", "--ddd_output"], device=device)
+    second = cli.run(base + ["-o", out[1]], device=device)
+    with h5py.File(os.path.join(out[0], "j.h5"), "r") as f:
+        n_events, frames = f["events"].shape[0], f["frame"].shape
+    if n_events != first.num_events or frames != (first.n_frames, H, W):
+        raise AssertionError(f"[h5] {n_events} events for {first.num_events}, frames "
+                             f"{frames} for {first.n_frames}")
+    a, b = (np.loadtxt(os.path.join(o, "j.txt"), comments="#") for o in out)
+    if second.staged_chunks or second.fused_chunks or not np.array_equal(a, b):
+        raise AssertionError("[h5] the replayed run differs from the recorded one")
+    log(f"[h5] --dvs_h5 --ddd_output: {n_events} events, frames {frames}; "
+        f"--slomo_use_saved replay: {len(b)} events equal to the recorded run's")
 
 
 # run E's variant flags: the center-surround pixel, the probe at the
@@ -1545,6 +1817,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from v2e_tpu_torch import native
     from v2e_tpu_torch.emulator import EventEmulator
     from v2e_tpu_torch.fused import FusedConverter
     from v2e_tpu_torch.io.aedat2 import AEDat2Output
@@ -1569,6 +1842,11 @@ def main() -> int:
         regs = [ln.strip() for ln in out.splitlines() if "registers" in ln]
         log(f"[build] {name}: " + " | ".join(regs))
     log(f"[build] nvcc wall {build_s:.2f} s ({time.perf_counter() - t:.2f} s)")
+    t = time.perf_counter()
+    if not native.have_native():
+        raise AssertionError(f"[native] {native.SOURCE} did not build or load with g++")
+    log(f"[native] built {native.LIBRARY} ({time.perf_counter() - t:.2f} s, "
+        f"g++ {' '.join(native.GXX_FLAGS)})")
 
     t = time.perf_counter()
     h2d = phase_h2d(torch, np)
@@ -1652,8 +1930,15 @@ def main() -> int:
                 "bilinear_warp": bilinear_warp, "warp_tiled": warp_tiled,
                 "conv3x3_lane": conv3x3_lane}
     with tempfile.TemporaryDirectory() as tmp:
-        cli_launches, cli_shapes = phase_cli(torch, np, tmp, counters)
+        cli_launches, cli_shapes, run_a_calls = phase_cli(torch, np, tmp, counters)
         log(f"[cli] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        host_ms = phase_native(np, run_a_calls)
+        del run_a_calls
+        log(f"[native] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_h5(np, tmp)
+        log(f"[h5] {time.perf_counter() - t:.2f} s")
         t = time.perf_counter()
         phase_cli_small(torch, np, tmp)
         log(f"[cli-small] {time.perf_counter() - t:.2f} s")
@@ -1712,6 +1997,7 @@ def main() -> int:
                                     "run_launches": {k: cli_launches[k] for k in "DE"}}))
     log("[synthetic] " + json.dumps({"generators": gens, "thres": thres, "h2d_bytes": h2d,
                                      "run_launches": syn_launches}))
+    log("[native] " + json.dumps({"host_cpu": cpu_model(), "functions": host_ms}))
     log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

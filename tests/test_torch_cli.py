@@ -28,6 +28,7 @@ scan and the port with a loop; every pixel where that changes the events
 first diverges on a threshold tie (lp - base within an ulp of a multiple
 of the threshold).
 """
+import importlib
 import os
 
 import cv2
@@ -36,10 +37,11 @@ import pytest
 
 from v2e_tpu.cli import main as jax_main
 from v2e_tpu_torch import cli
-from v2e_tpu_torch.models import backwarp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "fixtures", "slomo_golden.npz")
+# the module: v2e_tpu_torch.models exports the function `backwarp` under its name
+backwarp = importlib.import_module("v2e_tpu_torch.models.backwarp")
 H, W, N_FRAMES, FPS = 64, 96, 12, 30.0
 RTOL_EVENTS = 1e-3
 

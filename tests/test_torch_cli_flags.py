@@ -1,7 +1,8 @@
 """The port's CLI (v2e_tpu_torch.cli) on the CPU: its video and AEDAT-2
-outputs, the flags it turns away with a non-zero exit (each names the
-ROADMAP item that will port its path), the emulator-variant flags and the
-synthetic input it runs, and its import boundary (no jax, no v2e_tpu).  test_torch_cli.py
+outputs, the multi-GPU flags it turns away with a non-zero exit (each
+names the ROADMAP item that will port its path), the sink, SloMo,
+emulator-variant and synthetic-input flags it runs, and its import
+boundary (no jax, no v2e_tpu).  test_torch_cli.py
 holds the CLI against the JAX package's.
 """
 import logging
@@ -52,11 +53,6 @@ def test_cli_writes_videos_and_aedat(frames_dir, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--dvs_h5", "ev.h5"],
-    ["--dvs_aedat4", "ev.aedat4"],
-    ["--ddd_output"],
-    ["--slomo_use_saved"],
-    ["--slomo_stats_plot"],
     ["--devices", "2"],
     ["--parallel_mode", "segment"],
 ], ids=lambda f: f[0].lstrip("-"))
@@ -66,6 +62,40 @@ def test_rejected_flags_exit_nonzero(frames_dir, tmp_path, caplog, flags):
     assert rc == 2
     assert "ROADMAP" in caplog.text and flags[0] in caplog.text
     assert not (tmp_path / "out").exists()
+
+
+SLOMO = ["--slomo_model", GOLDEN, "--batch_size", "2", "--auto_timestamp_resolution", "False",
+         "--timestamp_resolution", "0.01", "--skip_video_output"]
+
+
+@pytest.mark.parametrize("flags,outputs", [
+    (["--dvs_h5", "ev.h5", "--disable_slomo"], ["ev.h5"]),
+    (["--dvs_aedat4", "ev.aedat4", "--disable_slomo"], ["ev.aedat4"]),
+    (["--ddd_output", "--dvs_h5", "ev.h5", "--dvs_text", "ev.txt"] + SLOMO, ["ev.h5"]),
+    (["--slomo_use_saved"] + SLOMO, ["../slomo-cache-*.h5"]),
+    (["--slomo_stats_plot"] + SLOMO, ["slomo-stats.png"]),
+], ids=["dvs_h5", "dvs_aedat4", "ddd_output", "slomo_use_saved", "slomo_stats_plot"])
+def test_sink_and_slomo_flags_run(frames_dir, tmp_path, flags, outputs):
+    """The flags the port once turned away: each exits 0 and writes its
+    output (--ddd_output with the --dvs_h5 it needs: every interpolated
+    frame and event in the HDF5 file, which keeps each window staged;
+    --slomo_use_saved a cache beside the output folder)."""
+    import glob
+
+    import h5py
+
+    out = tmp_path / "out"
+    assert cli.main(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(out)] + flags,
+                    device="cpu") == 0
+    for pattern in outputs:
+        found = glob.glob(str(out / pattern))
+        assert len(found) == 1 and os.path.getsize(found[0]) > 0, pattern
+    if "--ddd_output" in flags:
+        n_text = len(np.loadtxt(out / "ev.txt", comments="#"))
+        with h5py.File(out / "ev.h5", "r") as f:
+            # 3 pairs at U = 4, in windows of 2 pairs
+            assert f["frame"].shape == (12, 260, 346)
+            assert f["events"].shape[0] == n_text > 0
 
 
 def ran_and_wrote(out, names):
@@ -153,7 +183,9 @@ def test_command_line_needs_a_card(frames_dir, tmp_path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys, v2e_tpu_torch.cli, v2e_tpu_torch.__main__, v2e_tpu_torch.synthetic,"
-        " v2e_tpu_torch.synthetic.device, v2e_tpu_torch.analysis.thres_estimator;"
+        " v2e_tpu_torch.synthetic.device, v2e_tpu_torch.analysis.thres_estimator,"
+        " v2e_tpu_torch.native, v2e_tpu_torch.io.aedat4, v2e_tpu_torch.io.hdf5,"
+        " v2e_tpu_torch.models.slomo_cache, v2e_tpu_torch.examples.library_embedding;"
         "from v2e_tpu_torch.synthetic import moving_dot, single_linearly_moving_dot, spots,"
         " barberpole, gradients, particles;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e_tpu'));"

@@ -16,6 +16,8 @@ the clamp is active as well.  The test therefore checks that its inputs
 keep every tile mean at least 1e-3 px from a tie, and then holds the bases
 equal and the outputs to 1e-5.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,7 +174,8 @@ def test_half_to_even_tile_base():
 def test_warp_dispatch_by_window(monkeypatch):
     """models/backwarp.py: max_disp <= 32 goes to K3's wrapper, larger
     windows to K4's with max_base rounded up to a multiple of 128."""
-    import v2e_tpu_torch.models.backwarp as bw
+    # the module: v2e_tpu_torch.models exports the function `backwarp` under its name
+    bw = importlib.import_module("v2e_tpu_torch.models.backwarp")
 
     calls = []
     monkeypatch.setattr(bw, "bilinear_warp", lambda img, u, v, d: calls.append(("k3", d)) or img)

@@ -14,7 +14,38 @@ tensors.
 
 Entry points run on "cuda" unless the caller passes device="cpu"; with no
 CUDA device they raise instead of carrying on on the CPU.
-"""
-from v2e_tpu_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+The library API is v2e_tpu's: ``from v2e_tpu_torch import EventEmulator``
+(examples/library_embedding.py).
+"""
+
+__version__ = "0.1.0"
+
+from v2e_tpu_torch.device import resolve_device
+from v2e_tpu_torch.emulator.config import EmulatorConfig
+from v2e_tpu_torch.emulator.emulator import EventEmulator
+
+
+def __getattr__(name):
+    # SloMo and the renderer load on first use, so `import v2e_tpu_torch`
+    # stays cheap
+    if name == "SuperSloMo":
+        from v2e_tpu_torch.models.slomo import SuperSloMo
+
+        return SuperSloMo
+    if name in ("EventRenderer", "ExposureMode"):
+        from v2e_tpu_torch.render import renderer
+
+        return getattr(renderer, name)
+    raise AttributeError(f"module 'v2e_tpu_torch' has no attribute {name!r}")
+
+
+__all__ = [
+    "EmulatorConfig",
+    "EventEmulator",
+    "SuperSloMo",
+    "EventRenderer",
+    "ExposureMode",
+    "__version__",
+    "resolve_device",
+]

@@ -329,19 +329,12 @@ def v2e_check_dvs_exposure_args(args):
     return exposure_mode, float(dvs_exposure[1]), None
 
 
-# ROADMAP.md items ("Still to port") that will carry each path the port
-# turns away
-_SINKS = "sinks and readers"
-_SLOMO = "SloMo rest"
+# the ROADMAP.md item ("Still to port") that will carry the paths the
+# port turns away
 _PARALLEL = "parallel (multi-GPU)"
 
 # (flag, whether the parsed value asks for the path, ROADMAP item)
 _NOT_PORTED = (
-    ("--dvs_h5", lambda a: a.dvs_h5 is not None, _SINKS),
-    ("--ddd_output", lambda a: a.ddd_output, _SINKS),
-    ("--dvs_aedat4", lambda a: a.dvs_aedat4 is not None, _SINKS),
-    ("--slomo_use_saved", lambda a: a.slomo_use_saved, _SLOMO),
-    ("--slomo_stats_plot", lambda a: a.slomo_stats_plot, _SLOMO + " (needs matplotlib)"),
     ("--devices", lambda a: a.devices != 1, _PARALLEL),
     ("--parallel_mode", lambda a: a.parallel_mode != "pixel", _PARALLEL),
     ("--segment_warmup", lambda a: a.segment_warmup != 8, _PARALLEL),

@@ -7,19 +7,23 @@ Same flags and defaults as the JAX package's CLI (args.py).  Source frames
 are read with cv2 (an image folder needs --input_frame_rate), cropped,
 resized and converted to luma, then either interpolated with SuperSloMo
 and emulated chunk by chunk (models/pipeline.py), or with --disable_slomo
-fed straight to the emulator (`_run_direct`).  Events go to the AEDAT-2
-and text sinks and the DVS video renderer; the pixel variants (--scidvs,
+fed straight to the emulator (`_run_direct`).  Events go to the AEDAT-2,
+AEDAT-4, text and HDF5 sinks (--ddd_output adds the frames to the HDF5
+file) and the DVS video renderer; the pixel variants (--scidvs,
 --cs_lambda_pixels), the single-pixel probe and the model-state videos go
 to the emulator, and --resume_state / --checkpoint_state load the
 emulator's state before the conversion and save it after.  A synthetic
 input (synthetic/) is a generator class named by module path; its frames
 go straight to the emulator, rendered on the device chunk by chunk when no
-input AVI is written (`_run_synthetic`).
+input AVI is written (`_run_synthetic`).  --slomo_use_saved records the
+interpolated frames on a first run and replays them on later ones, and
+--slomo_stats_plot plots each chunk's upsampling factor
+(models/pipeline.py).
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the plain PyTorch
-versions of the kernels on the CPU (the tests do).  Flags whose path is not
-ported yet exit with status 2 and a message that names the ROADMAP item
-(args.check_ported).
+versions of the kernels on the CPU (the tests do).  The multi-GPU flags,
+whose path is not ported yet, exit with status 2 and a message that names
+the ROADMAP item (args.check_ported).
 """
 from __future__ import annotations
 
@@ -175,7 +179,9 @@ def _make_emulator(args, output_folder, output_width, output_height, device) -> 
         noise_rate_cov_decades=args.noise_rate_cov_decades,
         seed=args.dvs_emulator_seed,
         output_folder=output_folder,
+        dvs_h5=args.dvs_h5,
         dvs_aedat2=args.dvs_aedat2,
+        dvs_aedat4=args.dvs_aedat4,
         dvs_text=args.dvs_text,
         output_width=output_width,
         output_height=output_height,
@@ -193,6 +199,10 @@ def _make_emulator(args, output_folder, output_width, output_height, device) -> 
     )
     if args.dvs_params is not None:
         em.set_dvs_params(args.dvs_params)
+    if args.ddd_output and em.dvs_h5 is not None:
+        em.prepare_storage(None, None)  # frame datasets that grow as frames arrive
+    elif args.ddd_output:
+        logger.warning("--ddd_output requires --dvs_h5; ignoring")
     if args.resume_state:
         em.load_state(args.resume_state)
     return em

@@ -570,6 +570,23 @@ def emulate_chunk_apply(
     return new_state, outs
 
 
+def emulate_chunk(
+    cfg: EmulatorConfig,
+    params: EmulatorParams,
+    state: EmulatorState,
+    frames: torch.Tensor,
+    times: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[EmulatorState, Dict[str, torch.Tensor]]:
+    """Evaluate a chunk of frames [F,H,W] at chunk-relative times [F]: the
+    chunk's noise drawn from `generator` (on the frames' device; None takes
+    torch's default generator), then `emulate_chunk_apply`.  The JAX
+    package's `emulate_chunk` draws from the key in its state instead."""
+    draws = draw_chunk_noise(cfg, frames.shape[0], tuple(frames.shape[1:]),
+                             generator, frames.device)
+    return emulate_chunk_apply(cfg, params, state, frames, times, draws)
+
+
 def count_occupied(cfg: EmulatorConfig, outs: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Number of (frame, pixel) cells carrying any event."""
     return _occupancy(cfg, outs).sum(dtype=torch.int32)

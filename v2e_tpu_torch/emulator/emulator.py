@@ -6,12 +6,13 @@ Push frames with `generate_events(frame, t)` or chunks of frames with
 `submit_batch` / `collect`.  The chunk runs on the device
 (`emulate_and_compact_impl`); `collect` fetches the compacted cells, the
 single-pixel probe and the model-state frames (`collect_fetch`) and
-materializes AER events on the host, writing the AEDAT-2 and text sinks,
-the probe's record and the state videos (`collect_finalize`).
-`save_state` / `load_state` checkpoint a conversion.  The JAX package's
-`prewarm_collect` compiles XLA slice programs ahead of time; PyTorch runs
-eagerly, so it has no counterpart.  The HDF5 and AEDAT-4 sinks and the
-multi-device modes are not ported yet.
+materializes AER events on the host, writing the AEDAT-2, AEDAT-4, text
+and HDF5 sinks (with `prepare_storage`, the HDF5 file also takes the
+frames, DDD-style), the probe's record and the state videos
+(`collect_finalize`).  `save_state` / `load_state` checkpoint a
+conversion.  The JAX package's `prewarm_collect` compiles XLA slice
+programs ahead of time; PyTorch runs eagerly, so it has no counterpart.
+The multi-device modes are not ported yet.
 """
 from __future__ import annotations
 
@@ -102,7 +103,9 @@ class EventEmulator:
         noise_rate_cov_decades: float = 0.1,
         seed: int = 0,
         output_folder: Optional[str] = None,
+        dvs_h5: Optional[str] = None,
         dvs_aedat2: Optional[str] = None,
+        dvs_aedat4: Optional[str] = None,
         dvs_text: Optional[str] = None,
         output_width: Optional[int] = None,
         output_height: Optional[int] = None,
@@ -186,11 +189,18 @@ class EventEmulator:
                 k: np.full(SINGLE_PIXEL_MAX_SAMPLES, np.nan) for k in ("time",) + _PROBE_KEYS
             }
 
+        self.dvs_h5 = None
         self.dvs_aedat2 = None
+        self.dvs_aedat4 = None
         self.dvs_text = None
         self._video_writers: Dict[str, object] = {}
         if output_folder is not None:
             os.makedirs(output_folder, exist_ok=True)
+        if dvs_h5:
+            from v2e_tpu_torch.io.hdf5 import DVSH5Output
+
+            self.dvs_h5 = DVSH5Output(
+                check_add_suffix(os.path.join(output_folder or ".", dvs_h5), ".h5"))
         if dvs_aedat2:
             from v2e_tpu_torch.io.aedat2 import AEDat2Output
 
@@ -199,6 +209,14 @@ class EventEmulator:
                 output_width=output_width or 346,
                 output_height=output_height or 260,
                 label_signal_noise=label_signal_noise,
+            )
+        if dvs_aedat4:
+            from v2e_tpu_torch.io.aedat4 import AEDat4Output
+
+            self.dvs_aedat4 = AEDat4Output(
+                check_add_suffix(os.path.join(output_folder or ".", dvs_aedat4), ".aedat4"),
+                output_width=output_width or 640,
+                output_height=output_height or 480,
             )
         if dvs_text:
             from v2e_tpu_torch.io.text import DVSTextOutput
@@ -307,6 +325,9 @@ class EventEmulator:
             self._initialize(frames[0], times[0])
             self.t_previous = float(times[0])
             self.frame_counter += 1
+            if self.dvs_h5 is not None:
+                self.dvs_h5.appendFrame(frames[0].cpu().numpy(), ts=float(times[0]),
+                                        ev_idx=self.dvs_h5.numEventsWritten)
             start = 1
             if start >= frames.shape[0]:
                 return None
@@ -324,7 +345,10 @@ class EventEmulator:
             self.cfg, self.params, self.state, chunk, rel_times, self._capacity, draws
         )
         self._advance(times[start:], t_origin)
-        return self._handle(outs, packed, t_origin, times[start:])
+        handle = self._handle(outs, packed, t_origin, times[start:])
+        if self.dvs_h5 is not None:
+            handle["frames_for_h5"] = chunk
+        return handle
 
     def submit_batch_fused(
         self, fused_fn, statics, flow_net, interp_net, frames, times
@@ -396,6 +420,8 @@ class EventEmulator:
             packed["states"] = {
                 k: v.cpu().numpy() for k, v in handle["outs"]["states"].items()
             }
+        if "frames_for_h5" in handle:
+            packed["frames_for_h5"] = handle["frames_for_h5"].cpu().numpy()
         return packed
 
     def collect_finalize(self, handle: Dict, packed: Dict):
@@ -424,10 +450,15 @@ class EventEmulator:
             self._record_probe(packed["probe"], handle["times"])
         if "states" in packed:
             self._handle_state_frames(packed["states"])
-        if self.dvs_aedat2 is not None:
-            self.dvs_aedat2.appendEvents(events, signnoise_label=labels)
-        if self.dvs_text is not None:
-            self.dvs_text.appendEvents(events, signnoise_label=labels)
+        if "frames_for_h5" in packed:
+            base_idx = self.dvs_h5.numEventsWritten
+            for f, frame in enumerate(packed["frames_for_h5"]):
+                self.dvs_h5.appendFrame(frame, ts=float(handle["times"][f]),
+                                        ev_idx=base_idx + int(offsets[f + 1]))
+            self.dvs_h5.appendEvents(events)
+        for sink in (self.dvs_aedat2, self.dvs_aedat4, self.dvs_text):
+            if sink is not None:
+                sink.appendEvents(events, signnoise_label=labels)
         return events, labels, offsets
 
     # ------------------------------------------------------------------
@@ -554,10 +585,18 @@ class EventEmulator:
             f"(t={self.t_previous:.4f}s, {self.frame_counter} frames)"
         )
 
+    def prepare_storage(self, n_frames: Optional[int], frame_ts) -> None:
+        """DDD-style frame storage in the HDF5 file (--ddd_output): the
+        frame datasets, grown as frames arrive when `n_frames` is None."""
+        if self.dvs_h5 is not None:
+            self.dvs_h5.prepare_frame_storage(
+                n_frames, frame_ts, self.output_height, self.output_width
+            )
+
     def cleanup(self) -> None:
         """Close the event sinks and state videos and save the probe's
         record."""
-        for sink in (self.dvs_aedat2, self.dvs_text):
+        for sink in (self.dvs_h5, self.dvs_aedat2, self.dvs_aedat4, self.dvs_text):
             if sink is not None:
                 sink.close()
         for vw in self._video_writers.values():

@@ -1,7 +1,7 @@
 """AEDAT-2.0 (jAER) event file writer.
 
-A numpy copy of v2e_tpu/io/aedat2.py (its g++ packing path is not ported
-yet), byte-compatible with the original v2e writer: an ASCII header of
+The port's copy of v2e_tpu/io/aedat2.py, byte-compatible with the
+original v2e writer: an ASCII header of
 ``#``-prefixed CRLF lines followed by big-endian ``int32 address, int32
 timestamp`` pairs, timestamps in microseconds.  Address bit layouts per
 camera follow the inivation AEDAT-2.0 spec and jAER chip classes:
@@ -10,7 +10,9 @@ camera follow the inivation AEDAT-2.0 spec and jAER chip classes:
 * 640x480 (DVS640):          y<<11 | x<<1  | pol
 
 x and y are flipped (jAER uses lower-left origin), and noise events can be
-labeled by setting the special-event bit 10.
+labeled by setting the special-event bit 10.  The words are packed by the
+port's native library when it builds (`native.pack_aedat2`), else by
+`pack_aedat2_numpy`, its plain version.
 """
 from __future__ import annotations
 
@@ -20,7 +22,32 @@ from typing import Optional
 
 import numpy as np
 
+from v2e_tpu_torch import native
+
 logger = logging.getLogger(__name__)
+
+
+def pack_aedat2_numpy(events: np.ndarray, sizex: int, sizey: int, xshift: int,
+                      yshift: int, polshift: int, flipx: bool, flipy: bool,
+                      noise_mask: Optional[np.ndarray] = None) -> np.ndarray:
+    """The (address, timestamp) int32 pairs [2N] of `native.pack_aedat2`,
+    in numpy, with x and y mirrored each on its own flag; bit 10 is set
+    where `noise_mask` is 0."""
+    t = (1e6 * events[:, 0]).astype(np.int32)
+    x = events[:, 1].astype(np.int32)
+    y = events[:, 2].astype(np.int32)
+    if flipx:
+        x = (sizex - 1) - x
+    if flipy:
+        y = (sizey - 1) - y
+    p = ((events[:, 3] + 1) / 2).astype(np.int32)
+    a = x << xshift | y << yshift | p << polshift
+    if noise_mask is not None:
+        a[np.logical_not(noise_mask.astype(bool))] |= AEDat2Output.NOISE_SPECIAL_EVENT_BIT
+    out = np.empty(2 * events.shape[0], dtype=np.int32)
+    out[0::2] = a
+    out[1::2] = t
+    return out
 
 
 class AEDat2Output:
@@ -104,25 +131,16 @@ class AEDat2Output:
             return
         n = events.shape[0]
 
-        t = (1e6 * events[:, 0]).astype(np.int32)
-        if np.any(np.diff(t) < 0):
+        mask = signnoise_label if self.label_signal_noise else None
+        if np.any(np.diff(events[:, 0]) < 0):
             logger.warning("nonmonotonic timestamp in AEDAT-2 output")
-        x = events[:, 1].astype(np.int32)
-        if self.flipx:
-            x = (self.sizex - 1) - x
-        y = events[:, 2].astype(np.int32)
-        if self.flipy:
-            y = (self.sizey - 1) - y
-        p = ((events[:, 3] + 1) / 2).astype(np.int32)
-
-        a = x << self.xShiftBits | y << self.yShiftBits | p << self.polShiftBits
-        if self.label_signal_noise and signnoise_label is not None:
-            noise_mask = np.logical_not(signnoise_label.astype(bool))
-            a[noise_mask] |= self.NOISE_SPECIAL_EVENT_BIT
-
-        out = np.empty(2 * n, dtype=np.int32)
-        out[0::2] = a
-        out[1::2] = t
+        args = (events, self.sizex, self.sizey, self.xShiftBits, self.yShiftBits,
+                self.polShiftBits)
+        if self.flipx == self.flipy and native.have_native():
+            out = native.pack_aedat2(*args, self.flipx, mask)
+        else:
+            native.calls[("pack_aedat2", "numpy")] += 1
+            out = pack_aedat2_numpy(*args, self.flipx, self.flipy, mask)
         data = out.byteswap().tobytes(order="C")  # jAER is Java big-endian
         if self.numEventsWritten == 0:
             # jAER would misparse a file whose first data byte is '#'
@@ -134,7 +152,7 @@ class AEDat2Output:
                 n -= 1
         self.file.write(data)
         self.numEventsWritten += n
-        on = int(np.count_nonzero(p))
+        on = int(np.count_nonzero(events[:, 3] > 0))
         self.numOnEvents += on
         self.numOffEvents += n - on
         self.file.flush()

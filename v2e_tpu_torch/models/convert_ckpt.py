@@ -51,6 +51,21 @@ def load_slomo_params(path: str) -> Tuple[NpParams, NpParams]:
     )
 
 
+def convert_torch_checkpoint(ckpt_path: str, out_path: str) -> str:
+    """Write the reference's torch checkpoint to an .npz of its two state
+    dicts (``flow/<layer>.weight``, ``interp/<layer>.bias``, ...), the
+    layout `load_slomo_params` and the JAX package read; returns
+    `out_path`."""
+    ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=False)
+    out = {
+        f"{prefix}/{k}": v.detach().cpu().numpy()
+        for prefix, key in (("flow", "state_dictFC"), ("interp", "state_dictAT"))
+        for k, v in ckpt[key].items()
+    }
+    np.savez(out_path, **out)
+    return out_path
+
+
 def _state_to_params(state) -> NpParams:
     names = {k.rsplit(".", 1)[0] for k in state}
     return {

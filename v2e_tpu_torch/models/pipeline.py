@@ -7,22 +7,27 @@ without returning to the host; only the compacted events come back.  Two
 ways through a window:
 
 * fused (`FusedConverter`, when nothing on the host needs the
-  interpolated frames: the slomo video is not written): one `fused_chunk` per window after the first, with
-  U from a one-chunk lookahead in auto mode;
-* staged (the slomo video is written, or the first window): interpolate in
+  interpolated frames: no slomo video, SloMo cache or HDF5 sink): one
+  `fused_chunk` per window after the first, with U from a one-chunk
+  lookahead in auto mode;
+* staged (a host consumer of the frames, or the first window): interpolate in
   pair slices (`SuperSloMo.interpolate_batch_slices`, where auto-U and the
   warp window are chosen from the window's own flow), then `submit_batch`.
 
 Up to `DEPTH` chunks are in flight, collected in order by a fetch thread
-and a finalize thread (`ChunkPipeline`).  The JAX package's
-`--slomo_use_saved` replay and `--slomo_stats_plot` are not ported (the
-CLI turns them away).
+and a finalize thread (`ChunkPipeline`).
+
+With --slomo_use_saved a first run records the interpolated frames to an
+HDF5 cache beside the output folder (every window staged) and a later run
+with the same input and SloMo settings replays them into the emulator
+with no model (`_replay_cached`).  --slomo_stats_plot writes each chunk's
+upsampling factor to slomo-stats.png (matplotlib).
 """
 from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, Iterator, List
+from typing import Callable, Iterator, List, Optional
 
 import numpy as np
 
@@ -57,9 +62,27 @@ def run_interpolated_pipeline(
     auto_upsample: bool,
     feed_renderer: Callable,
     device=None,
-) -> SuperSloMo:
+) -> Optional[SuperSloMo]:
     """Convert `frames_iter` through SloMo and the emulator; returns the
-    SloMo engine (its U statistics) and fills `stats`."""
+    SloMo engine (its U statistics), or None when a saved stream was
+    replayed, and fills `stats`."""
+    cache_writer = None
+    if args.slomo_use_saved and args.input is not None:
+        from v2e_tpu_torch.models.slomo_cache import (
+            SlomoCacheReader,
+            SlomoCacheWriter,
+            cache_path_for,
+        )
+
+        cpath = cache_path_for(args, src_frame_interval, output_height, output_width)
+        if SlomoCacheReader.usable(cpath):
+            logger.info(f"replaying saved SloMo frames from {cpath}")
+            _replay_cached(cpath, args, emulator, renderer, exposure_mode,
+                           output_width, output_height, stats, feed_renderer)
+            return None
+        cache_writer = SlomoCacheWriter(cpath, output_height, output_width)
+        logger.info(f"recording SloMo frames to {cpath}")
+
     slomo = SuperSloMo(
         model=args.slomo_model,
         auto_upsample=auto_upsample,
@@ -85,8 +108,12 @@ def run_interpolated_pipeline(
                 output_height, output_width, frame_rate=args.avi_frame_rate,
             )
 
-    # the fused chunk keeps the interpolated frames on the device
-    fused = FusedConverter(slomo, emulator) if slomo_writer is None else None
+    # the fused chunk keeps the interpolated frames on the device, so it
+    # runs only when no host consumer (the slomo video, the SloMo cache,
+    # the HDF5 sink's frames) needs them
+    fused = (FusedConverter(slomo, emulator)
+             if slomo_writer is None and cache_writer is None and emulator.dvs_h5 is None
+             else None)
     if fused is not None:
         logger.info("using fused conversion chunks")
     pipeline = ChunkPipeline(
@@ -100,6 +127,7 @@ def run_interpolated_pipeline(
     on_collected = fused.note_collected if fused is not None else None
     window: List[np.ndarray] = []
     pair_index = 0  # global index of the window's first pair
+    stats_u: List[tuple] = []  # (source time, U) per window
 
     def note_times(times: np.ndarray, n_out: int) -> None:
         stats.n_frames += n_out
@@ -131,10 +159,15 @@ def run_interpolated_pipeline(
                 times = (pair_index + pair_off
                          + np.arange(n_out, dtype=np.float64) / U) * src_frame_interval
                 pipeline.push_handle(emulator.submit_batch(interp, times))
-                if slomo_writer is not None:
-                    _write_gray(slomo_writer, interp.to("cpu").numpy().astype(np.uint8))
+                if slomo_writer is not None or cache_writer is not None:
+                    host = interp.to("cpu").numpy().astype(np.uint8)
+                    if cache_writer is not None:
+                        cache_writer.append(host, times)
+                    if slomo_writer is not None:
+                        _write_gray(slomo_writer, host)
                 note_times(times, n_out)
         stats.upsampling.append(U)
+        stats_u.append((pair_index * src_frame_interval, U))
         if orig_writer is not None:
             _write_gray(orig_writer, np.stack(window[:-1]).astype(np.uint8))
         pair_index += n_pairs
@@ -151,10 +184,80 @@ def run_interpolated_pipeline(
         process_window()
         # the JAX package prewarms its XLA slice programs after the first
         # collected chunk (prewarm_collect); eager PyTorch compiles nothing
+    except BaseException:
+        if cache_writer is not None:
+            cache_writer.abort()  # a partial stream is never replayed
+        raise
     finally:
         pipeline.close()
         for writer in (orig_writer, slomo_writer):
             if writer is not None:
                 writer.release()
+    if cache_writer is not None:
+        cache_writer.finalize(slomo.avg_upsampling_factor)
     logger.info(f"SloMo average upsampling factor: {slomo.avg_upsampling_factor:.1f}")
+    if args.slomo_stats_plot and stats_u:
+        save_slomo_stats_plot(args.output_folder, stats_u)
     return slomo
+
+
+def _replay_cached(cpath, args, emulator, renderer, exposure_mode, output_width,
+                   output_height, stats, feed_renderer) -> None:
+    """Feed a recorded interpolated stream straight into the emulator in
+    chunks of --chunk_size frames (a --slomo_use_saved run after the
+    first: no model, no UNet)."""
+    from v2e_tpu_torch.models.slomo_cache import SlomoCacheReader
+
+    reader = SlomoCacheReader(cpath)
+    pipeline = ChunkPipeline(
+        emulator,
+        lambda ev, lab, off: feed_renderer(
+            renderer, ev, off, exposure_mode, output_height, output_width,
+            args.skip_video_output,
+        ),
+    )
+    slomo_writer = None
+    if not args.skip_video_output and args.vid_slomo:
+        from v2e_tpu_torch.utils.video import video_writer
+
+        slomo_writer = video_writer(
+            os.path.join(args.output_folder, args.vid_slomo),
+            output_height, output_width, frame_rate=args.avi_frame_rate,
+        )
+    try:
+        for frames, times in reader.chunks(args.chunk_size):
+            pipeline.push(frames, times)
+            if slomo_writer is not None:
+                _write_gray(slomo_writer, frames.astype(np.uint8))
+            stats.n_frames += frames.shape[0]
+            if stats.first_ts is None:
+                stats.first_ts = float(times[0])
+            stats.last_ts = float(times[-1])
+    finally:
+        pipeline.close()
+        reader.close()
+        if slomo_writer is not None:
+            slomo_writer.release()
+    logger.info(f"SloMo average upsampling factor (saved): {reader.avg_upsampling:.1f}")
+
+
+def save_slomo_stats_plot(output_folder: str, stats_u) -> str:
+    """Plot each chunk's upsampling factor against its source time to
+    slomo-stats.png in `output_folder` (matplotlib, headless); returns the
+    path."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    t, u = zip(*stats_u)
+    fig, ax = plt.subplots(figsize=(8, 4))
+    ax.step(t, u, where="post")
+    ax.set_xlabel("source time (s)")
+    ax.set_ylabel("upsampling factor")
+    ax.set_title(f"SloMo upsampling (mean {float(np.mean(u)):.1f})")
+    path = os.path.join(output_folder, "slomo-stats.png")
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
+    logger.info(f"wrote SloMo statistics plot to {path}")
+    return path

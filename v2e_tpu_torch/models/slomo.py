@@ -16,8 +16,10 @@ about 1 px per interpolated frame, rounded up into the bucket ladder
 `UPSAMPLE_BUCKETS` (finer timestamps than asked, never coarser), and
 floored by an explicit --timestamp_resolution.  When that U exceeds the
 32 px warp cap, the chunk's warp window widens to U and the warps go to
-K4 (`_choose_disp`).  The reference's file API (`interpolate`,
-`get_interpolated_timestamps`) is not ported yet.
+K4 (`_choose_disp`).  The original v2e's file API rides on
+`interpolate_batch`: `interpolate` reads .npy frames from a folder and
+writes numbered PNGs, and `get_interpolated_timestamps` spreads real
+timestamps U-fold.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import math
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from v2e_tpu_torch.device import resolve_device, scalar
@@ -348,3 +351,49 @@ class SuperSloMo:
                 flow_out=flow_out[s: s + pair_slice], conv_impl=self.conv_impl,
             )
             yield postprocess_frames(interp, H, W, quantize), s
+
+    # ------------------------------------------------------------------
+    def interpolate(
+        self, source_frame_path: str, output_folder: str, frame_size
+    ) -> Tuple[np.ndarray, float]:
+        """The original v2e's file API, for the dataset tools: read the
+        .npy frames of a folder (in numeric order), interpolate them in
+        chunks of `batch_size` pairs, write the frames to `output_folder`
+        as 0.png, 1.png, ..., and return (their times in source-frame units,
+        the average upsampling factor).  `frame_size` is (W, H)."""
+        import cv2
+
+        files = sorted(
+            (f for f in os.listdir(source_frame_path) if f.endswith(".npy")),
+            key=lambda s: int(os.path.splitext(s)[0]) if os.path.splitext(s)[0].isdigit() else 0,
+        )
+        if len(files) < 2:
+            raise ValueError(f"need at least 2 source frames in {source_frame_path}")
+        frames = np.stack(
+            [np.load(os.path.join(source_frame_path, f)) for f in files]
+        ).astype(np.float32)
+        W, H = frame_size
+        os.makedirs(output_folder, exist_ok=True)
+        interp_times = []
+        out_idx = 0
+        input_counter = 0
+        for s in range(0, len(frames) - 1, self.batch_size):
+            chunk = frames[s: s + self.batch_size + 1]
+            out, U = self.interpolate_batch(chunk, H, W)
+            for k, frame in enumerate(out.cpu().numpy().astype(np.uint8)):
+                cv2.imwrite(os.path.join(output_folder, f"{out_idx}.png"), frame)
+                interp_times.append(input_counter + (k % U) / U + (k // U))
+                out_idx += 1
+            input_counter += chunk.shape[0] - 1
+        return np.array(interp_times), self.avg_upsampling_factor
+
+    def get_interpolated_timestamps(self, ts: np.ndarray) -> np.ndarray:
+        """Spread real timestamps U-fold, each interval's U times offset by
+        half a step.  In auto mode U is the last chunk's factor."""
+        U = self.last_upsampling_factor or self.upsampling_factor or 2
+        out = []
+        for i in range(ts.shape[0] - 1):
+            start, end = ts[i], ts[i + 1]
+            out.append(np.linspace(start, end, U, endpoint=False)
+                       + 0.5 * (end - start) / U)
+        return np.hstack(out)

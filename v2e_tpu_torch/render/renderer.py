@@ -7,9 +7,10 @@ exposure modes of the original v2e renderer:
 * AREA_COUNT: a frame ends when any NxN pixel area has M events;
 * SOURCE: one DVS frame per event packet.
 
-The JAX package runs the histogram and the AREA_COUNT scan in its native
-C++ library when it is built; that library is not ported yet, so the port
-always takes the numpy versions.
+The histogram and the AREA_COUNT scan run in the port's native library
+(v2e_tpu_torch/native) when it builds, else in numpy
+(`accumulate_histogram_numpy`, `area_count_scan_numpy`, the plain
+versions).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ from typing import Optional
 
 import numpy as np
 
+from v2e_tpu_torch import native
 from v2e_tpu_torch.utils.paths import check_add_suffix
 from v2e_tpu_torch.utils.video import video_writer
 
@@ -36,8 +38,21 @@ class ExposureMode(Enum):
 def accumulate_histogram(
     frame: np.ndarray, events: np.ndarray, full_scale: float
 ) -> None:
-    """Add this packet's ON-OFF event histogram into ``frame`` in place,
-    then clip to +-full_scale."""
+    """Add this packet's ON-OFF event histogram into ``frame`` (float32) in
+    place, then clip to +-full_scale."""
+    if not len(events):
+        np.clip(frame, -full_scale, full_scale, out=frame)
+    elif native.have_native():
+        native.hist2d_accumulate(frame, events, full_scale)
+    else:
+        native.calls[("hist2d_accumulate", "numpy")] += 1
+        accumulate_histogram_numpy(frame, events, full_scale)
+
+
+def accumulate_histogram_numpy(
+    frame: np.ndarray, events: np.ndarray, full_scale: float
+) -> None:
+    """The numpy version of `accumulate_histogram`."""
     H, W = frame.shape
     ev = np.asarray(events, dtype=np.float64)
     if ev.shape[0]:
@@ -211,16 +226,11 @@ class EventRenderer:
         accumulate_histogram(self.currentFrame, events, self.full_scale_count)
 
     def _area_count_scan(self, events: np.ndarray, start: int) -> int:
-        nw, nh = self.area_counts.shape
-        for i in range(start, events.shape[0]):
-            ax = int(events[i, 1] // self.area_dimension)
-            ay = int(events[i, 2] // self.area_dimension)
-            if 0 <= ax < nw and 0 <= ay < nh:
-                self.area_counts[ax, ay] += 1
-                if self.area_counts[ax, ay] >= self.area_count:
-                    self.area_counts[:] = 0
-                    return i
-        return events.shape[0]
+        args = (events, start, self.area_dimension, self.area_count, self.area_counts)
+        if native.have_native():
+            return native.area_count_scan(*args)
+        native.calls[("area_count_scan", "numpy")] += 1
+        return area_count_scan_numpy(*args)
 
     def _write_frame(self, img: np.ndarray, ts, start: int, end: int) -> None:
         if self.video_output_file is None:
@@ -252,3 +262,20 @@ class EventRenderer:
         if self.frame_times_output_file is not None:
             self.frame_times_output_file.close()
             self.frame_times_output_file = None
+
+
+def area_count_scan_numpy(events: np.ndarray, start: int, area_dimension: int,
+                          area_count: int, counts: np.ndarray) -> int:
+    """The numpy version of `native.area_count_scan`: count events from
+    `start` into `counts` [nw,nh] by area until one reaches `area_count`;
+    returns that event's index (counts reset to 0) or N."""
+    nw, nh = counts.shape
+    for i in range(start, events.shape[0]):
+        ax = int(events[i, 1] // area_dimension)
+        ay = int(events[i, 2] // area_dimension)
+        if 0 <= ax < nw and 0 <= ay < nh:
+            counts[ax, ay] += 1
+            if counts[ax, ay] >= area_count:
+                counts[:] = 0
+                return i
+    return events.shape[0]

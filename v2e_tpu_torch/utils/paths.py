@@ -52,3 +52,12 @@ def set_output_folder(
             )
     os.makedirs(folder, exist_ok=True)
     return folder
+
+
+def inputVideoFileDialog() -> Optional[str]:
+    """The original v2e pops a file chooser when no input is given; the
+    port runs headless, so it stops with a clear message instead."""
+    raise SystemExit(
+        "no --input specified and no display available for a file chooser; "
+        "pass -i/--input"
+    )
