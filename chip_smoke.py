@@ -125,13 +125,37 @@ Phases, each printed on its own line with its seconds:
      mismatch, noise or lowpass; targets from a run at 0.25/0.25): the same
      thresholds and probes on the card as on the CPU;
  14. K1 again at run F's shape: 64 frames of 260x346 at dt = 100 us, R =
-     0.5 ms (the filter acts on every pixel that fires).
+     0.5 ms (the filter acts on every pixel that fires);
+ 15. `[k3-vjp]`: K3 against warp_plain (within 1e-5) and its VJP kernel
+     against warp_plain_vjp at the training shape (8 planes of 256x320,
+     smooth flows to +-48 px so that taps fall outside, and to +-480 px):
+     flow gradients within 1e-6, the image gradient within 1e-5 of its
+     largest value; its time with and without the image gradient,
+     the plain version's, grid_sample's backward to the grid and the bound;
+ 16. `[train]`: SuperSloMo training, the port's train_slomo on the card at
+     the full width and its defaults (base 32, crop 256x320, batch 8, gap
+     2), 30 steps on three clips of make_training_videos at 288x352: K3 and
+     its VJP launched 6 times each per step and no plain warp; the step
+     alone (median of 10 after 3 warm-up steps), samples/s, peak memory,
+     the TF32 setting, the device kernels of one profiled step by group
+     (`[train-profile]`); a static scene whose loss 8 steps lower; the
+     exported npz loaded into SuperSloMo and interpolating on the card;
+     `[train-small]`: one step at base 8 and 64x96 card against CPU with
+     cuDNN's TF32 off (loss terms 1e-5 relative, gradients 1e-4 of their
+     largest, Adam on the same gradients 1e-7); `[eval]`: eval_slomo_ckpt's
+     held-out PSNR of the golden fixture on the card equal to the CPU's
+     within 0.05 dB and more than 1 dB over the frame average; `[batch]`:
+     batch_convert on a two-video tree on the card (--dvs_h5 "", AEDAT-2
+     and text sinks): exit 0, the tree mirrored, 8 B per event; `[ddd]`:
+     the DDD tools where h5py imports, else a line saying so.
 
 Then a JSON line of the variant phases' numbers, one of the synthetic
 phases' numbers, one of the native host library's (host ms, CPU model),
-one JSON line with every kernel's numbers (K1's launches
-in run F and K2's in run H beside those of the fused chunk and run B), the
-nvidia-smi line again,
+one of the training phase's numbers, one JSON line with every kernel's
+numbers (K1's launches in run F and K2's in run H beside those of the
+fused chunk and run B; K3's launches and error at the training shape;
+K3's VJP as its own entry, which K3's names under "vjp", with the
+training run's launches), the nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when CUDA is unavailable, a kernel does not build or disagrees, or any
 check fails.
@@ -382,6 +406,419 @@ def phase_k3(torch, dev):
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
     }
+
+
+TRAIN_N, TRAIN_H, TRAIN_W = 8, 256, 320  # train_slomo's defaults: batch 8, crop 256x320
+TRAIN_STEPS = 30
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "tests", "fixtures", "slomo_golden.npz")
+
+
+def phase_k3_vjp(torch, dev):
+    """K3 and its VJP at the training shape (the batch's 8 planes of
+    256x320), smooth flows to +-48 px so that taps fall outside and to
+    +-480 px (the training flows from random weights are unbounded):
+    K3 against warp_plain within 1e-5 (the [k3] check, at training's
+    shape and flows beyond its +-32 px), the VJP against warp_plain_vjp:
+    flow gradients within 1e-6, the image gradient (atomic sums) within
+    1e-5 of its largest value; grid_sample's backward to the grid timed
+    beside it.  Returns the VJP's entry and K3's error at this shape."""
+    import torch.nn.functional as Fn
+
+    from v2e_tpu_torch.ops.kernels.warp import (
+        bilinear_warp,
+        bilinear_warp_vjp,
+        warp_plain,
+        warp_plain_vjp,
+    )
+
+    N, h, w = TRAIN_N, TRAIN_H, TRAIN_W
+    g = torch.Generator(device=dev).manual_seed(12)
+    img = torch.rand((N, h, w), generator=g, device=dev) - 0.428
+    coarse = torch.rand((N, 2, 9, 11), generator=g, device=dev) * 96.0 - 48.0
+    flow = Fn.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=True).contiguous()
+    u, v = flow[:, 0], flow[:, 1]
+    gout = torch.randn((N, h, w), generator=g, device=dev)
+    xs = torch.arange(w, device=dev)[None, None, :] + u - 0.5
+    outside = float(((xs < 0) | (xs > w - 1)).float().mean())
+
+    before = bilinear_warp_vjp.launches
+    k3_before = bilinear_warp.launches
+    k3_err = {}
+    for reach, (uu, vv) in ((48, (u, v)), (480, (u * 10.0, v * 10.0))):
+        k3_err[reach] = float((bilinear_warp(img, uu, vv) - warp_plain(img, uu, vv)).abs().max())
+    if not max(k3_err.values()) <= 1e-5:
+        raise AssertionError(f"K3 at the training shape differs from the plain version: "
+                             f"{k3_err} > 1e-5")
+    far_f, _ = bilinear_warp_vjp(img, u * 10.0, v * 10.0, gout)
+    far_err = float((far_f - warp_plain_vjp(img, u * 10.0, v * 10.0, gout)[0]).abs().max())
+    gf, gi = bilinear_warp_vjp(img, u, v, gout, True)
+    wf, wi = warp_plain_vjp(img, u, v, gout, True)
+    gf_only, none = bilinear_warp_vjp(img, u, v, gout)
+    torch.cuda.synchronize()
+    err = float((gf - wf).abs().max())
+    err_only = float((gf_only - wf).abs().max())
+    err_img = float((gi - wi).abs().max()) / float(wi.abs().max())
+    if not (max(err, err_only, far_err) <= 1e-6 and err_img <= 1e-5 and none is None):
+        raise AssertionError(f"K3's VJP differs from the plain version: flow {err}, "
+                             f"{err_only}, {far_err} (+-480 px) > 1e-6 or image {err_img} "
+                             f"> 1e-5 of its largest")
+
+    gx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :]
+    gy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None]
+    grid = torch.stack([2.0 * ((gx + u) / w - 0.5), 2.0 * ((gy + v) / h - 0.5)],
+                       dim=-1).requires_grad_()
+    out = Fn.grid_sample(img[:, None], grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=False)
+
+    def lib():
+        return torch.autograd.grad(out, grid, gout[:, None], retain_graph=True)
+
+    ms = time_ms(torch, lambda: bilinear_warp_vjp(img, u, v, gout), reps=20)
+    device_ms = time_device_ms(torch, lambda: bilinear_warp_vjp(img, u, v, gout), reps=20)
+    ms_img = time_device_ms(torch, lambda: bilinear_warp_vjp(img, u, v, gout, True), reps=20)
+    plain_ms = time_ms(torch, lambda: warp_plain_vjp(img, u, v, gout), reps=5)
+    library_ms = time_ms(torch, lib, reps=20)
+    library_device_ms = time_device_ms(torch, lib, reps=20)
+    k3_ms = time_device_ms(torch, lambda: bilinear_warp(img, u, v), reps=20)
+    bilinear_warp.launches = k3_before
+    bilinear_warp_vjp.launches = before  # comparison launches do not count
+    # image, u, v, gout read, grad_u, grad_v written: 24 B per pixel; ~45 f32 ops
+    b_ms, b_by = bound(N * h * w * 24, N * h * w * 45)
+    log(f"[k3-vjp] K3 N={N} {h}x{w}: max abs err {k3_err[48]:.3g} with flows to +-48 px "
+        f"({outside:.1%} of x taps outside), {k3_err[480]:.3g} to +-480 px")
+    log(f"[k3-vjp] K3's VJP N={N} {h}x{w}, flows to +-48 px: max abs err {err:.3g} (flow "
+        f"only {err_only:.3g}; {far_err:.3g} to +-480 px), image gradient "
+        f"{err_img:.3g} of its largest; kernel {ms:.4f} ms, device {device_ms:.4f} ms "
+        f"({ms_img:.4f} ms with the image gradient), plain {plain_ms:.3f} ms, grid_sample "
+        f"backward {library_ms:.4f} ms (device {library_device_ms:.4f} ms), bound "
+        f"{b_ms:.4f} ms ({b_by}); K3 forward at this shape: device {k3_ms:.4f} ms")
+    return {
+        "name": "bilinear_warp_vjp", "route": "cuda",
+        "source": "v2e_tpu_torch/csrc/warp.cu",
+        "replaces": "v2e_tpu/models/backwarp.py:16",
+        "max_abs_err": max(err, err_only, far_err), "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+        "device_ms": device_ms, "device_ms_with_image_grad": ms_img,
+        "library_device_ms": library_device_ms, "image_grad_rel_err": err_img,
+        "k3_device_ms_at_train_shape": k3_ms,
+    }, max(k3_err.values())
+
+
+KERNEL_GROUPS = (  # device kernel names of a training step, by what they do
+    ("warps (K3, VJP)", ("warp_kernel", "warp_bwd_kernel")),
+    ("optimizer", ("adam", "multi_tensor", "foreach")),
+    ("cuDNN layout transposes", ("nchwtonhwc", "nhwctonchw")),
+    ("convolutions", ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad", "fprop",
+                      "implicit", "winograd", "cutlass")),
+    ("bilinear upsample", ("upsample_bilinear",)),
+)
+
+
+def group_kernels(rows):
+    """Device ms of profiled kernels (rows of profile_device) by group;
+    what no group names is elementwise and the rest."""
+    out = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    out["elementwise and other"] = 0.0
+    for ms, _, key in rows:
+        low = key.lower()
+        for name, pats in KERNEL_GROUPS:
+            if any(p in low for p in pats):
+                out[name] += ms
+                break
+        else:
+            out["elementwise and other"] += ms
+    return out
+
+
+def phase_train(torch, np, dev, tmp, launches):
+    """The port's train_slomo on the card at SuperSloMo's full width and its
+    defaults (base 32, crop 256x320, batch 8, gap 2), TRAIN_STEPS steps on
+    clips of make_training_videos rendered at 288x352: K3 and its VJP
+    launched 6 times each per step and no plain warp; then the training
+    step alone (median of 10 after 3 warm-up steps, peak memory), one
+    profiled step by kernel group, a static scene whose loss 8 steps
+    lower, and the exported npz loaded into SuperSloMo for one
+    interpolation.  `launches` gets the counts of the tool's run."""
+    import importlib
+
+    import v2e_tpu_torch.ops.kernels.warp as warp_mod
+    from v2e_tpu_torch.dataset_tools import make_training_videos, train_slomo
+    from v2e_tpu_torch.dataset_tools.batch_convert import find_videos
+    from v2e_tpu_torch.models import train
+
+    # the module: v2e_tpu_torch.models exports the function `backwarp` under its name
+    backwarp_mod = importlib.import_module("v2e_tpu_torch.models.backwarp")
+    vids = os.path.join(tmp, "train-videos")
+    t = time.perf_counter()
+    make_training_videos.main(["-o", vids, "--n_videos", "3", "--frames", "24",
+                               "--size", "288", "352", "--seed", "0"])
+    log(f"[train] 3 clips of 24 frames at 288x352 rendered in {time.perf_counter() - t:.2f} s")
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+    plain = Counter()
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            plain[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    spent = Counter()  # the tool's seconds of sampling and of checkpoints
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] += time.perf_counter() - t
+        return wrapper
+
+    saved = (warp_mod.warp_plain, warp_mod.warp_plain_vjp, backwarp_mod.warp_plain,
+             train_slomo.TripletSampler.sample_batch, train_slomo.save_checkpoint)
+    warp_mod.warp_plain = counted("warp_plain", saved[0])
+    warp_mod.warp_plain_vjp = counted("warp_plain_vjp", saved[1])
+    backwarp_mod.warp_plain = counted("warp_plain", saved[2])
+    train_slomo.TripletSampler.sample_batch = timed("sample", saved[3])
+    train_slomo.save_checkpoint = timed("checkpoint", saved[4])
+    out = os.path.join(tmp, "train-run")
+    argv = ["-i", vids, "-o", out, "--steps", str(TRAIN_STEPS), "--batch_size", str(TRAIN_N),
+            "--crop", str(TRAIN_H), str(TRAIN_W), "--base", "32", "--log_every", "10",
+            "--checkpoint_every", str(TRAIN_STEPS)]
+    try:
+        warp_mod.bilinear_warp.launches = 0
+        warp_mod.bilinear_warp_vjp.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run = train_slomo.run(argv, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches["bilinear_warp"] = warp_mod.bilinear_warp.launches
+        launches["bilinear_warp_vjp"] = warp_mod.bilinear_warp_vjp.launches
+    finally:
+        (warp_mod.warp_plain, warp_mod.warp_plain_vjp, backwarp_mod.warp_plain,
+         train_slomo.TripletSampler.sample_batch, train_slomo.save_checkpoint) = saved
+    per_step = (launches["bilinear_warp"] / TRAIN_STEPS, launches["bilinear_warp_vjp"] / TRAIN_STEPS)
+    if per_step != (6, 6) or plain:
+        raise AssertionError(f"train_slomo: K3 and VJP launches per step {per_step} != (6, 6), "
+                             f"plain warp calls {dict(plain)}")
+    if not all(np.isfinite(v) for v in run.metrics.values()):
+        raise AssertionError(f"train_slomo: metrics not finite {run.metrics}")
+    log(f"[train] train_slomo base 32, crop {TRAIN_H}x{TRAIN_W}, batch {TRAIN_N}: "
+        f"{TRAIN_STEPS} steps in {wall:.2f} s ({run.samples / wall:.1f} samples/s; the loop "
+        f"{run.wall_s:.2f} s, of it sampling {spent['sample']:.2f} s and the checkpoint "
+        f"{spent['checkpoint']:.2f} s); K3 {per_step[0]:g} and VJP {per_step[1]:g} "
+        f"launches per step, no plain warp; last loss {run.metrics['loss']:.4f} "
+        f"(l_r {run.metrics['l_r']:.4f}, l_w {run.metrics['l_w']:.4f}, "
+        f"l_s {run.metrics['l_s']:.4f}); cuDNN TF32 {tf32[0]}, matmul TF32 {tf32[1]}")
+
+    state = train.create_train_state(seed=0, base=32, device="cuda")
+    sampler = train_slomo.TripletSampler(find_videos(vids, {".avi"}), (TRAIN_H, TRAIN_W), 2,
+                                         seed=1)
+    batch = train.batch_to(sampler.sample_batch(TRAIN_N), dev)
+    step = train.make_train_step()
+    for _ in range(3):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(10):
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_ms = float(np.median(times)) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[train] step (median of 10 after 3 warm-up): {step_ms:.2f} ms "
+        f"(min {min(times) * 1e3:.2f}, max {max(times) * 1e3:.2f}), "
+        f"{TRAIN_N / step_ms * 1e3:.1f} samples/s, peak memory {peak / 2**30:.2f} GiB")
+    rows = profile_device(torch, "train-profile", lambda: step(state, batch), step_ms,
+                          "one training step", top=15)
+    groups = group_kernels(rows or [])
+    busy = sum(groups.values())
+    if busy:
+        log("[train-profile] by group: " + ", ".join(
+            f"{k} {v:.2f} ms ({v / busy:.1%})" for k, v in groups.items()))
+
+    static = train.create_train_state(seed=2, base=32, device="cuda")
+    img = batch["I0"]
+    scene = {"I0": img, "I1": img, "It": img, "t": torch.full((TRAIN_N,), 0.5, device=dev)}
+    losses = [float(step(static, scene)[1]["loss"]) for _ in range(8)]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"static scene at base 32: loss did not fall in 8 steps {losses}")
+    log(f"[train] static scene base 32: loss {losses[0]:.4f} -> {losses[-1]:.4f} in 8 steps")
+
+    from v2e_tpu_torch.models.slomo import SuperSloMo
+
+    slomo = SuperSloMo(run.npz, upsampling_factor=4, batch_size=2, device="cuda")
+    frames = sampler._load(find_videos(vids, {".avi"})[0])[:3].astype(np.float32)
+    interp, U = slomo.interpolate_batch(frames, frames.shape[1], frames.shape[2])
+    if tuple(interp.shape) != (2 * U, 288, 352) or not bool(torch.isfinite(interp).all()):
+        raise AssertionError(f"trained npz: interpolation {tuple(interp.shape)} not finite")
+    log(f"[train] {os.path.basename(run.npz)} (base {slomo.flow_net.base}) interpolated "
+        f"3 frames at 288x352 on the card: {tuple(interp.shape)}, finite")
+    return {"steps": TRAIN_STEPS, "wall_s": wall, "samples_per_s_tool": run.samples / wall,
+            "loop_s": run.wall_s, "sample_s": spent["sample"], "checkpoint_s": spent["checkpoint"],
+            "step_ms": step_ms, "samples_per_s": TRAIN_N / step_ms * 1e3,
+            "peak_bytes": peak, "tf32_cudnn": tf32[0], "groups_ms": groups,
+            "static_losses": [losses[0], losses[-1]]}
+
+
+def train_small_step(torch, np, params, batch, device):
+    """One loss and backward at base 8 on `device`: (state, metrics)."""
+    from v2e_tpu_torch.models import train
+
+    state = train.create_train_state(params=params, device=device)
+    b = train.batch_to(batch, torch.device(device))
+    loss, metrics = train.slomo_loss(state.flow_net, state.interp_net,
+                                     b["I0"], b["I1"], b["It"], b["t"])
+    loss.backward()
+    return state, {k: float(v.detach()) for k, v in metrics.items()}
+
+
+def phase_train_small(torch, np):
+    """One training step at base 8 and 64x96 on the card and on the CPU from
+    the same weights and batch, cuDNN's TF32 off.  With cuDNN off (PyTorch's
+    own CUDA convolutions) at tests/test_torch_train.py's tolerances: loss
+    terms within 1e-5 relative, every gradient within 1e-4 of its tensor's
+    largest, and Adam fed the CPU's gradients on both within 1e-7; this
+    holds the port's losses, K3, its VJP and Adam.  With cuDNN on (the
+    path train_slomo runs) the gradients within 1e-3 of their largest:
+    cuDNN's float32 weight gradients of the 5x5 layers are 4.4e-4 of their
+    largest off a float64 reference, the CPU's 3.7e-6 (H100 80GB HBM3,
+    700 W, torch 2.11.0+cu128)."""
+    from v2e_tpu_torch.models.convert_ckpt import init_random_slomo_params, to_jax_params
+
+    params = init_random_slomo_params(11, base=8)
+    rng = np.random.default_rng(8)
+    batch = {k: rng.normal(0, 0.3, (2, 1, 64, 96)).astype(np.float32) for k in ("I0", "I1", "It")}
+    batch["t"] = rng.uniform(0.1, 0.9, (2,)).astype(np.float32)
+    sc, mc = train_small_step(torch, np, params, batch, "cpu")
+    pc = [(f"{i}.{n}", p) for i, net in enumerate((sc.flow_net, sc.interp_net))
+          for n, p in net.named_parameters()]
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for cudnn, grad_tol in ((False, 1e-4), (True, 1e-3)):
+            torch.backends.cudnn.enabled = cudnn
+            sg, mg = train_small_step(torch, np, params, batch, "cuda")
+            loss_err = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc)
+            pg = [p for net in (sg.flow_net, sg.interp_net) for p in net.parameters()]
+            errs = sorted(((float((a.grad.cpu() - b.grad).abs().max()) / float(b.grad.abs().max()),
+                            name) for a, (name, b) in zip(pg, pc)), reverse=True)
+            if not (loss_err <= 1e-5 and errs[0][0] <= grad_tol):
+                raise AssertionError(f"train-small (cuDNN {cudnn}): card vs CPU loss {loss_err:.3g} "
+                                     f"> 1e-5 or gradients {errs[:3]} > {grad_tol}")
+            line = (f"[train-small] base 8, 2x64x96, TF32 off, cuDNN {'on' if cudnn else 'off'}: "
+                    f"card vs CPU loss terms within {loss_err:.3g} relative, gradients within "
+                    f"{errs[0][0]:.3g} of their largest (worst {errs[0][1]}, then "
+                    f"{errs[1][1]} {errs[1][0]:.3g})")
+            if not cudnn:
+                for a, (_, b) in zip(pg, pc):
+                    a.grad = b.grad.to(a.device)
+                sg.optimizer.step()
+                sc.optimizer.step()  # its gradients stay for the cuDNN case
+                adam_err = max(float(np.abs(x[k][n] - y[k][n]).max())
+                               for x, y in zip(to_jax_params(sg.flow_net, sg.interp_net),
+                                               to_jax_params(sc.flow_net, sc.interp_net))
+                               for k in x for n in ("w", "b"))
+                if not adam_err <= 1e-7:
+                    raise AssertionError(f"train-small: Adam card vs CPU {adam_err:.3g} > 1e-7")
+                line += f", Adam on the same gradients within {adam_err:.3g}"
+            log(line)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.enabled = old
+
+
+def phase_eval(torch):
+    """eval_slomo_ckpt on the golden fixture on the card and on the CPU."""
+    from v2e_tpu_torch.dataset_tools.eval_slomo_ckpt import evaluate
+
+    card = evaluate(GOLDEN, device="cuda")
+    cpu = evaluate(GOLDEN, device="cpu")
+    if abs(card["model"] - cpu["model"]) > 0.05 or not card["model"] > card["average"] + 1.0:
+        raise AssertionError(f"eval: card {card} vs CPU {cpu}")
+    log(f"[eval] golden fixture (base {card['base']}) at 128x160, U=4: PSNR card "
+        f"{card['model']:.4f} dB, CPU {cpu['model']:.4f} dB, frame average "
+        f"{card['average']:.4f} dB (margin {card['model'] - card['average']:+.2f} dB)")
+    return card
+
+
+def phase_batch(torch, np, tmp):
+    """batch_convert on a two-video tree on the card (golden SuperSloMo,
+    U=12, --dvs_h5 "" and an AEDAT-2 sink): exit 0, the tree mirrored, 8 B
+    of AEDAT-2 payload per event of the run's text file."""
+    import cv2
+
+    from v2e_tpu_torch.dataset_tools import batch_convert
+
+    src = os.path.join(tmp, "batch-in")
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for sub, name in (("classA", "v1"), ("classB", "v2")):
+        os.makedirs(os.path.join(src, sub))
+        vw = cv2.VideoWriter(os.path.join(src, sub, f"{name}.avi"),
+                             cv2.VideoWriter_fourcc(*"XVID"), 30, (W, H), False)
+        phase = rng.uniform(0, 6)
+        for i in range(8):
+            f = 100 + 60 * np.sin((xx - 4 * i) / 11.0 + phase) * np.cos(yy / 13.0)
+            vw.write(np.clip(f, 0, 255).astype(np.uint8))
+        vw.release()
+    dst = os.path.join(tmp, "batch-out")
+    t = time.perf_counter()
+    rc = batch_convert.main(["-i", src, "-o", dst, "--dvs_h5", "", "--dvs_aedat2", "ev.aedat",
+                             "--dvs_text", "ev.txt", "--timestamp_resolution", "0.003",
+                             "--auto_timestamp_resolution", "false", "--slomo_model", GOLDEN],
+                            device="cuda")
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"batch_convert exited {rc}")
+    counts = []
+    for sub, name in (("classA", "v1"), ("classB", "v2")):
+        folder = os.path.join(dst, sub, name)
+        n = sum(1 for ln in open(os.path.join(folder, "ev.txt")) if not ln.startswith("#"))
+        payload = read_aedat2(os.path.join(folder, "ev.aedat"))
+        if n == 0 or payload != 8 * n:
+            raise AssertionError(f"batch_convert {sub}/{name}: {payload} B of AEDAT-2 for {n} events")
+        counts.append(n)
+    log(f"[batch] batch_convert on the card, 2 videos of 8 frames at {W}x{H} (U=12): exit 0, "
+        f"tree mirrored, {counts} events at 8 B each, {wall:.2f} s")
+
+
+def phase_ddd(np, tmp):
+    """The DDD tools where h5py imports: ddd_v2e on the card on a written
+    three-frame recording; else one line saying they were not run."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        log("[ddd] not run: h5py is absent on this machine (the CPU tests hold the DDD tools "
+            "against v2e_tpu's)")
+        return
+    import struct
+
+    from v2e_tpu_torch.dataset_tools import ddd_v2e
+    from v2e_tpu_torch.io.ddd import DDDH5Writer
+
+    def header(etype, esize, n):
+        return struct.pack("hhiiiiii", etype, 0, esize, 0, 0, n, n, n)
+
+    path = os.path.join(tmp, "rec.hdf5")
+    w = DDDH5Writer(path)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    for i in range(3):
+        img = (100 + 60 * np.sin((xx - 5 * i) / 9.0)).astype(np.uint16) * 256
+        head = np.zeros(9, np.uint32)
+        head[2] = 1_000_000 + 40_000 * i
+        w.append_packet(header(2, 36 + img.nbytes, 1), head.tobytes() + img.tobytes())
+    w.close()
+    out = os.path.join(tmp, "ddd-out")
+    rc = ddd_v2e.main(["-i", path, "-o", out, "--slomo_model", GOLDEN, "--numpy_output",
+                       "--timestamp_resolution", "0.008"], device="cuda")
+    n = np.load(os.path.join(out, "events-v2e.npy")).shape[0] if rc == 0 else 0
+    if rc != 0 or n == 0:
+        raise AssertionError(f"ddd_v2e exited {rc} with {n} synthetic events")
+    log(f"[ddd] ddd_v2e on the card: {n} synthetic events from 3 APS frames")
 
 
 def k2_inputs(torch, dev, F, h, w, noisy=True, seed=4, dt=1.0 / (SRC_FPS * RUN_B_U)):
@@ -1358,6 +1795,9 @@ GEN_PIXEL_SHARE = 1e-4
 # copies that open and close a profiled CLI run's trace ([h2d] runs before
 # any other profile: late in a long run a trace lacked its first copies)
 MARKER_BYTES = (4096, 8192)
+# CUPTI can lose the first copy it sees after the profiler starts: a
+# throwaway copy of this size goes first and is dropped from the trace
+WARM_BYTES = 2048
 SYNTHETIC_F = ["--synthetic_input", "scripts.moving_dot"]
 SYNTHETIC_H = ["--synthetic_input", "scripts.particles", "--dvs_params", "noisy"]
 # each generator's flag for the stimulus' length in seconds
@@ -1368,20 +1808,23 @@ def cli_copies(torch, np, argv, n_frames):
     """The copies (name, bytes) that a torch.profiler trace records over one
     whole `cli.run(argv)` cut to n_frames frames of 100 us, between two
     marker copies host to device (MARKER_BYTES) that show the trace recorded
-    all of it.  The run makes its cached 0-d operands anew."""
+    all of it, after a throwaway copy (WARM_BYTES).  The run makes its
+    cached 0-d operands anew."""
     from torch.profiler import ProfilerActivity, profile
 
     from v2e_tpu_torch import cli, device
 
     device._scalar.cache_clear()
-    markers = [np.zeros(n // 4, dtype=np.float32) for n in MARKER_BYTES]
+    markers = [np.zeros(n // 4, dtype=np.float32) for n in (WARM_BYTES,) + MARKER_BYTES]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.from_numpy(markers[0]).to("cuda")
         torch.cuda.synchronize()
+        torch.from_numpy(markers[1]).to("cuda")
+        torch.cuda.synchronize()
         stats = cli.run(argv, device="cuda")
         torch.cuda.synchronize()
-        torch.from_numpy(markers[1]).to("cuda")
+        torch.from_numpy(markers[2]).to("cuda")
         torch.cuda.synchronize()
     if stats.n_frames != n_frames:
         raise AssertionError(f"{argv}: {stats.n_frames} frames, not {n_frames}")
@@ -1392,6 +1835,8 @@ def cli_copies(torch, np, argv, n_frames):
     copies = [(e.get("name", ""), int(e.get("args", {}).get("bytes", -1)))
               for e in sorted(trace, key=lambda e: e.get("ts", 0))
               if e.get("cat") == "gpu_memcpy"]
+    if copies and "HtoD" in copies[0][0] and copies[0][1] == WARM_BYTES:
+        copies = copies[1:]
     ends = copies[:1] + copies[-1:]
     if [b for n, b in ends if "HtoD" in n] != list(MARKER_BYTES):
         raise AssertionError(f"{argv}: the trace's first and last copies are not the "
@@ -1759,7 +2204,7 @@ def profile_device(torch, tag, fn, ref_ms, what, top=12):
             rows.append((dev_us / 1e3, e.count, e.key))
     if not rows:
         log(f"[{tag}] device time not measured (the profiler saw no device)")
-        return
+        return rows
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"[{tag}] {what}: device kernel time {busy:.1f} ms in {len(rows)} kernels "
@@ -1767,6 +2212,7 @@ def profile_device(torch, tag, fn, ref_ms, what, top=12):
         f"unprofiled {ref_ms:.1f} ms)")
     for ms, n, name in rows[:top]:
         log(f"[{tag}]   {ms:9.3f} ms x{n:<5d} {name[:100]}")
+    return rows
 
 
 def phase_profile(torch, np, fc, em, src, c, chunk_ms):
@@ -1992,13 +2438,38 @@ def main() -> int:
     phase_unet_forms(torch, dev)
     log(f"[unet-forms] {time.perf_counter() - t:.2f} s")
 
+    t = time.perf_counter()
+    vjp, k3["max_abs_err_train_shape"] = phase_k3_vjp(torch, dev)
+    log(f"[k3-vjp] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    train_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        training = phase_train(torch, np, dev, tmp, train_launches)
+        log(f"[train] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_train_small(torch, np)
+        log(f"[train-small] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_eval(torch)
+        log(f"[eval] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_batch(torch, np, tmp)
+        log(f"[batch] {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_ddd(np, tmp)
+        log(f"[ddd] {time.perf_counter() - t:.2f} s")
+    vjp["launches"] = train_launches["bilinear_warp_vjp"]
+    k3["launches_train"] = train_launches["bilinear_warp"]
+    k3["vjp"] = vjp["name"]  # the VJP's numbers are in its own entry
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log("[variants] " + json.dumps({"variants": variants, "resume": resume,
                                     "run_launches": {k: cli_launches[k] for k in "DE"}}))
     log("[synthetic] " + json.dumps({"generators": gens, "thres": thres, "h2d_bytes": h2d,
                                      "run_launches": syn_launches}))
     log("[native] " + json.dumps({"host_cpu": cpu_model(), "functions": host_ms}))
-    log(json.dumps({"kernels": [k1, k2, k3, k4, k5]}))
+    log("[training] " + json.dumps(training))
+    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -185,7 +185,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, v2e_tpu_torch.cli, v2e_tpu_torch.__main__, v2e_tpu_torch.synthetic,"
         " v2e_tpu_torch.synthetic.device, v2e_tpu_torch.analysis.thres_estimator,"
         " v2e_tpu_torch.native, v2e_tpu_torch.io.aedat4, v2e_tpu_torch.io.hdf5,"
-        " v2e_tpu_torch.models.slomo_cache, v2e_tpu_torch.examples.library_embedding;"
+        " v2e_tpu_torch.models.slomo_cache, v2e_tpu_torch.examples.library_embedding,"
+        " v2e_tpu_torch.models.train, v2e_tpu_torch.io.ddd, v2e_tpu_torch.utils.roi;"
+        "from v2e_tpu_torch.dataset_tools import batch_convert, ddd_extract_data,"
+        " ddd_find_thresholds, ddd_plot_event_counts, ddd_v2e, eval_slomo_ckpt,"
+        " make_training_videos, train_slomo;"
         "from v2e_tpu_torch.synthetic import moving_dot, single_linearly_moving_dot, spots,"
         " barberpole, gradients, particles;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'v2e_tpu'));"

@@ -6,7 +6,13 @@ fixture, so every test worker collects the same tests).  On an H100:
 Tolerance: K1 counts, i0 and K identical, base and memory within 1e-6; K2
 counts identical, base within 1e-6 (at CLI run B's shape, at 720x1280, in
 the clean form, with one stream absent, at F = 1 and F below the ring
-depth, and from views whose data pointers are not 16-byte aligned); K3 and K4 within 1e-5; K5 in float32
+depth, and from views whose data pointers are not 16-byte aligned); K3 and K4 within 1e-5; K3's VJP
+within 1e-6 for the flow gradients and 1e-5 of the largest value for the
+image gradient (summed with atomics in no fixed order), and one training
+step at base 8 on the card against the CPU with cuDNN's TF32 off at
+tests/test_torch_train.py's tolerances with cuDNN off, and with cuDNN on
+its gradients within 1e-3 of their largest (cuDNN's float32 weight
+gradients of the 5x5 layers: 4.4e-4 off float64); K5 in float32
 within 1e-5 (float32 sums in another order, inputs of unit scale: measured
 4.3e-6), in bf16 within one bf16 ulp of each element, or 1e-5 absolute near
 zero where the two float32 sums' own rounding exceeds an ulp (measured up
@@ -34,7 +40,13 @@ from v2e_tpu_torch.ops.kernels.emulator_scan import (
     scan,
     scan_plain,
 )
-from v2e_tpu_torch.ops.kernels.warp import bilinear_warp, warp_plain
+from v2e_tpu_torch.ops.kernels.warp import (
+    BilinearWarpFn,
+    bilinear_warp,
+    bilinear_warp_vjp,
+    warp_plain,
+    warp_plain_vjp,
+)
 from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled, warp_tiled_plain
 
 pytestmark = pytest.mark.gpu
@@ -227,12 +239,101 @@ def test_bilinear_warp_kernel_matches_plain(cuda):
     assert float((got - warp_plain(img, flow[:, 0], flow[:, 1])).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("reach", [48.0, 480.0])
+def test_bilinear_warp_kernel_at_training_shape(cuda, reach):
+    """K3 where training launches it: a batch of 8 planes of 256x320, from
+    the two channels of one flow tensor, with flows beyond the inference
+    window (random initial weights give unbounded flows)."""
+    img, flow, _ = vjp_inputs(cuda, 8, 256, 320, reach, seed=3)
+    n0 = bilinear_warp.launches
+    got = bilinear_warp(img, flow[:, 0], flow[:, 1])
+    assert bilinear_warp.launches == n0 + 1
+    assert float((got - warp_plain(img, flow[:, 0], flow[:, 1])).abs().max()) <= 1e-5
+
+
+def vjp_inputs(cuda, N, H, W, reach, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    img = torch.rand((N, H, W), generator=g, device=cuda) - 0.428
+    flow = (2 * reach) * torch.rand((N, 2, H, W), generator=g, device=cuda) - reach
+    flow[:, :, ::7] = torch.round(flow[:, :, ::7]) + 0.5  # whole pixels
+    gout = torch.randn((N, H, W), generator=g, device=cuda)
+    return img, flow, gout
+
+
+@pytest.mark.parametrize("N,H,W,reach", [(8, 256, 320, 48.0), (8, 256, 320, 480.0),
+                                           (3, 37, 61, 20.0)])
+@pytest.mark.parametrize("need_img", [False, True])
+def test_bilinear_warp_vjp_kernel_matches_plain(cuda, N, H, W, reach, need_img):
+    img, flow, gout = vjp_inputs(cuda, N, H, W, reach)
+    flow = torch.cat([flow, flow], dim=1)[:, 1:3]  # a view: 4 planes between images
+    n0 = bilinear_warp_vjp.launches
+    gf, gi = bilinear_warp_vjp(img, flow[:, 0], flow[:, 1], gout, need_img)
+    assert bilinear_warp_vjp.launches == n0 + 1
+    wf, wi = warp_plain_vjp(img, flow[:, 0], flow[:, 1], gout, need_img)
+    assert float((gf - wf).abs().max()) <= 1e-6
+    if need_img:
+        assert float((gi - wi).abs().max()) <= 1e-5 * float(wi.abs().max())
+    else:
+        assert gi is None
+
+
+def test_bilinear_warp_fn_on_card_launches_both_kernels(cuda):
+    img, flow, gout = vjp_inputs(cuda, 4, 64, 96, 30.0, seed=5)
+    flow.requires_grad_()
+    n0, m0 = bilinear_warp.launches, bilinear_warp_vjp.launches
+    out = BilinearWarpFn.apply(img, flow)
+    out.backward(gout)
+    assert (bilinear_warp.launches, bilinear_warp_vjp.launches) == (n0 + 1, m0 + 1)
+    want, _ = warp_plain_vjp(img, flow[:, 0].detach(), flow[:, 1].detach(), gout)
+    assert float((flow.grad - want).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("cudnn,grad_tol", [(False, 1e-4), (True, 1e-3)])
+def test_train_step_on_card_matches_cpu(no_tf32, monkeypatch, cudnn, grad_tol):
+    """cuDNN off: PyTorch's own CUDA convolutions, so the port's losses, K3
+    and its VJP are held at tests/test_torch_train.py's tolerances.  cuDNN
+    on: its float32 weight gradients of the 5x5 layers are 4.4e-4 of their
+    largest off a float64 reference (the CPU's 3.7e-6; H100 80GB HBM3 at
+    700 W, torch 2.11.0+cu128), so 1e-3."""
+    monkeypatch.setattr(torch.backends.cudnn, "enabled", cudnn)
+    import numpy as np
+
+    from v2e_tpu_torch.models import train
+    from v2e_tpu_torch.models.convert_ckpt import init_random_slomo_params
+
+    params = init_random_slomo_params(4, base=8)
+    rng = np.random.default_rng(7)
+    batch = {k: rng.normal(0, 0.3, (2, 1, 64, 96)).astype(np.float32) for k in ("I0", "I1", "It")}
+    batch["t"] = rng.uniform(0.1, 0.9, (2,)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        state = train.create_train_state(params=params, device=dev)
+        b = train.batch_to(batch, torch.device(dev))
+        n0 = bilinear_warp_vjp.launches
+        loss, metrics = train.slomo_loss(state.flow_net, state.interp_net,
+                                         b["I0"], b["I1"], b["It"], b["t"])
+        loss.backward()
+        if dev == "cuda":
+            assert bilinear_warp_vjp.launches == n0 + 6
+        out[dev] = ({k: float(v.detach()) for k, v in metrics.items()},
+                    [p.grad.cpu() for net in (state.flow_net, state.interp_net)
+                     for p in net.parameters()])
+    for k, want in out["cpu"][0].items():
+        assert abs(out["cuda"][0][k] - want) <= 1e-5 * abs(want), k
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((got - want).abs().max()) <= grad_tol * float(want.abs().max())
+
+
 def test_kernel_wrappers_check_their_inputs(cuda):
     img = torch.rand((2, 8, 8), device=cuda)
     with pytest.raises(ValueError):
         bilinear_warp(img, img.double(), img, 8)
     with pytest.raises(ValueError):
         bilinear_warp(img, img.transpose(1, 2), img, 8)
+    with pytest.raises(ValueError):
+        bilinear_warp_vjp(img, img, img, img.double())
+    with pytest.raises(ValueError):
+        bilinear_warp_vjp(img, img, img[:, :, :4].contiguous(), img)
     with pytest.raises(ValueError):
         warp_tiled(img, img, img.double(), 128)
     with pytest.raises(ValueError):

@@ -14,13 +14,16 @@ JAX package:
   residual envelope.
 
 On the card each wrapper launches its CUDA kernel; on the CPU it runs its
-plain version.
+plain version.  Training differentiates the warp with respect to the flow
+through `backwarp_grad`: K3 forward and its VJP kernel backward
+(`BilinearWarpFn`), exact for any flow, as the training flows from random
+weights are unbounded.
 """
 from __future__ import annotations
 
 import torch
 
-from v2e_tpu_torch.ops.kernels.warp import bilinear_warp, warp_plain
+from v2e_tpu_torch.ops.kernels.warp import BilinearWarpFn, bilinear_warp, warp_plain
 from v2e_tpu_torch.ops.kernels.warp_tiled import max_base_for, warp_tiled
 
 # the largest window K3 serves (the JAX package's static warp cap)
@@ -34,6 +37,17 @@ def backwarp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     u = flow[:, 0].repeat_interleave(c, dim=0)
     v = flow[:, 1].repeat_interleave(c, dim=0)
     return warp_plain(img.reshape(n * c, H, W), u, v).reshape(n, c, H, W)
+
+
+def backwarp_grad(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """`backwarp` with a gradient: [N,C,H,W] images by [N,2,H,W] flow
+    through `BilinearWarpFn` (the kernels on CUDA tensors, the plain
+    forward and VJP on CPU tensors)."""
+    n, c, H, W = img.shape
+    if c > 1:
+        flow = flow.repeat_interleave(c, dim=0)
+    out = BilinearWarpFn.apply(img.reshape(n * c, H, W).contiguous(), flow)
+    return out.reshape(n, c, H, W)
 
 
 def warp(img: torch.Tensor, flow: torch.Tensor, max_disp: int = 32) -> torch.Tensor:

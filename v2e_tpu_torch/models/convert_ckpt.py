@@ -4,8 +4,10 @@ v2e_tpu/models/convert_ckpt.py).
 
 Parameters travel as the JAX package's layout: nested dicts
 ``params[layer] = {"w": OIHW array, "b": array}`` of numpy arrays, which
-`from_jax_params` turns into the port's UNet modules.  The npz layout is
-``flow/<layer>.weight`` etc., the original torch checkpoint's state dicts.
+`from_jax_params` turns into the port's UNet modules and `to_jax_params`
+back.  The npz layout is ``flow/<layer>.weight`` etc., the original torch
+checkpoint's state dicts; `save_slomo_npz` writes it as the JAX package's
+training tool exports it.
 """
 from __future__ import annotations
 
@@ -123,3 +125,36 @@ def from_jax_params(
     package's layout; the width is read from conv1's shape."""
     dev = resolve_device(device)
     return _to_unet(flow_np, FLOW_IO, dev, dtype), _to_unet(interp_np, INTERP_IO, dev, dtype)
+
+
+def to_jax_params(flow_net: UNet, interp_net: UNet) -> Tuple[NpParams, NpParams]:
+    """The inverse of `from_jax_params`: (flow, interp) parameter trees of
+    float32 numpy arrays, ``params[layer] = {"w": OIHW, "b": [Co]}``."""
+    out = []
+    for net in (flow_net, interp_net):
+        params: NpParams = {}
+        for name, *_ in unet_conv_specs(net.in_ch, net.out_ch, net.base):
+            conv = net.get_submodule(name)
+            params[name] = {
+                "w": conv.weight.detach().to("cpu", torch.float32).numpy().copy(),
+                "b": conv.bias.detach().to("cpu", torch.float32).numpy().copy(),
+            }
+        out.append(params)
+    return out[0], out[1]
+
+
+def save_slomo_npz(
+    path: str, flow_np: NpParams, interp_np: NpParams, dtype: str = "float32"
+) -> str:
+    """Write parameter trees to a compressed .npz in `dtype` (float16 halves
+    the file; `load_slomo_params` restores float32), the layout
+    dataset_tools/train_slomo.py exports and --slomo_model reads in both
+    packages; returns `path`."""
+    dt = np.dtype(dtype)
+    blobs = {}
+    for prefix, tree in (("flow", flow_np), ("interp", interp_np)):
+        for layer, wb in tree.items():
+            blobs[f"{prefix}/{layer}.weight"] = np.asarray(wb["w"], dt)
+            blobs[f"{prefix}/{layer}.bias"] = np.asarray(wb["b"], dt)
+    np.savez_compressed(path, **blobs)
+    return path
