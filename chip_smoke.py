@@ -147,15 +147,39 @@ Phases, each printed on its own line with its seconds:
      within 0.05 dB and more than 1 dB over the frame average; `[batch]`:
      batch_convert on a two-video tree on the card (--dvs_h5 "", AEDAT-2
      and text sinks): exit 0, the tree mirrored, 8 B per event; `[ddd]`:
-     the DDD tools where h5py imports, else a line saying so.
+     the DDD tools where h5py imports, else a line saying so;
+ 17. several devices, on the one card (v2e_tpu_torch/parallel/):
+     `[cli-parallel]` (after run H) run B's flags with a fixed seed through
+       `python -m v2e_tpu_torch --devices 2 --parallel_mode segment`: the
+       clamp warning, and the events of the same run in process;
+     `[pixel]` EventEmulator with a mesh of S strips on cuda:0 against one
+       device over 4 chunks of run B's 96 frames at 346x260 (the CLI's
+       emulator defaults, seed 42): R = 0.5 ms through K1's two halves at
+       S = 2 and 3 (260 rows padded to 261), the noisy preset through K2
+       per strip at S = 2 and 3, and R = 0.5 ms at 1280x720 with S = 4;
+       events equal bit for bit, the halves' and K2's launches counted,
+       any plain scan refused; ms per chunk beside one device's;
+     `[k1-halves]` the two halves over 3 strips at run B's shape against
+       their plain versions and K1, bit for bit; each timed on a strip
+       beside its plain version and bound, the split chunk beside K1;
+     `[segment]` EventEmulator in 4 time segments (warm-up 8) over 3
+       chunks of run A's 768 frames: K1 once per segment, each pixel's
+       signed count within one crossing per seam of the continuous run's;
+     `[ddp]` train_slomo's step at full width on 2 ranks of cuda:0 over
+       gloo (DDP, global batch 8) against one process on the whole batch:
+       loss and weights within 1e-3 of the largest, K3 and its VJP 6 times
+       per rank, no plain warp; the step's ms and the all-reduce's share;
+     `[dryrun]` `python -m v2e_tpu_torch.parallel.dryrun 2` exits 0.
 
 Then a JSON line of the variant phases' numbers, one of the synthetic
 phases' numbers, one of the native host library's (host ms, CPU model),
-one of the training phase's numbers, one JSON line with every kernel's
+one of the training phase's numbers, one of the parallel phases' numbers
+(`[parallel]`), one JSON line with every kernel's
 numbers (K1's launches in run F and K2's in run H beside those of the
 fused chunk and run B; K3's launches and error at the training shape;
 K3's VJP as its own entry, which K3's names under "vjp", with the
-training run's launches), the nvidia-smi line again,
+training run's launches; K1's halves as their own entries, with the
+launches of `[pixel]`'s S = 3 run at 346x260), the nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when CUDA is unavailable, a kernel does not build or disagrees, or any
 check fails.
@@ -2254,6 +2278,462 @@ def phase_small_reference(torch, np, devices=("cuda", "cpu")):
         f"(max diff {diff} DN), events {ng} vs {nc}")
 
 
+# ---- several devices: pixel strips, K1's halves, time segments, DDP ----
+
+PIXEL_U = RUN_B_U
+PIXEL_F = 8 * RUN_B_U  # run B's chunk: 8 source pairs at U = 12
+PIXEL_CHUNKS = 4
+SEG_S, SEG_W, SEG_U, SEG_CHUNKS = 4, 8, 96, 3  # segments, warm-up, run A's U (F = 768)
+# the CLI's emulator defaults (args.py)
+CLI_EMULATOR = dict(pos_thres=0.2, neg_thres=0.2, sigma_thres=0.03, cutoff_hz=300.0,
+                    leak_rate_hz=0.01, shot_noise_rate_hz=0.001, refractory_period_s=0.0005)
+DDP_RANKS, DDP_STEPS = 2, 5
+# [ddp]'s step: train_slomo's default global batch and crop, SuperSloMo's width
+DDP_SHAPE = (TRAIN_N, TRAIN_H, TRAIN_W, 32)
+PIXEL_LARGE = (720, 1280, 4)  # [pixel]'s large plane and its strips
+PLAIN_SCANS = ("refractory_count_plain", "refractory_apply_plain", "refractory_scan_plain",
+               "scan_plain")
+
+
+def scene(torch, dev, n, h, w, u):
+    """make_source_frames' scene (a drifting texture and a moving blob) and
+    a bright bar sweeping 40 px per source frame, as the CLI runs' input,
+    sampled u times per 30 fps source frame: u8[n,h,w] on the card."""
+    f32 = torch.float32
+    yy = torch.arange(h, device=dev, dtype=f32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=f32)[None, :]
+    s = (torch.arange(n, device=dev, dtype=f32) / u)[:, None, None]
+    fr = 100 + 40 * torch.sin((xx + 2.0 * s) / 17.0) * torch.cos(yy / 13.0)
+    cx = torch.remainder(w / 4 + 5 * s, w)
+    fr = fr + 80 * torch.exp(-((xx - cx) ** 2 + (yy - h / 2) ** 2) / (2 * 15.0 ** 2))
+    fr = fr + 100 * (torch.remainder(xx + 0.5 * yy - 40.0 * s, 240.0) < 30.0).to(f32)
+    return torch.clamp(fr, 0, 255).to(torch.uint8)
+
+
+def run_stream(torch, np, em, frames, times, chunk, n_chunks):
+    """Feed 1 + n_chunks * chunk frames to `em` in chunks (the first with the
+    initial frame); returns (events, mean ms per chunk after the first, from
+    submit to collected events)."""
+    evs, ms = [], []
+    for c in range(n_chunks):
+        a, b = (0 if c == 0 else 1 + c * chunk), 1 + (c + 1) * chunk
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ev = em.generate_events_batch(frames[a:b], times[a:b])
+        torch.cuda.synchronize()
+        if c:
+            ms.append((time.perf_counter() - t) * 1e3)
+        if ev is not None:
+            evs.append(ev)
+    return np.concatenate(evs), float(np.mean(ms))
+
+
+class PlainScansRefused:
+    """Within the block, any plain version of K1, its halves or K2 raises:
+    the main path must reach the kernels."""
+
+    def __enter__(self):
+        from v2e_tpu_torch.ops.kernels import emulator_scan as es
+
+        self.es, self.saved = es, {n: getattr(es, n) for n in PLAIN_SCANS}
+
+        def refuse(*a, **k):
+            raise AssertionError("a plain scan version ran on the main path")
+        for n in PLAIN_SCANS:
+            setattr(es, n, refuse)
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.es, n, fn)
+
+
+def phase_pixel(torch, np, dev):
+    """`[pixel]`: EventEmulator with a mesh of S strips on the card against
+    the single-device EventEmulator on the same frames (4 chunks of run B's
+    96 frames at 1/360 s, seed 42, the CLI's emulator defaults): with R =
+    0.5 ms (K1's halves) at S = 2 and 3 (3 pads 260 rows to 261), with the
+    noisy preset (K2 per strip) at S = 2 and 3, and at 1280x720 with S = 4.
+    Events equal bit for bit; launches as the strips need them and no
+    plain version.  Returns the S = 3 refractory run's launches."""
+    from v2e_tpu_torch.emulator import EventEmulator
+    from v2e_tpu_torch.ops.kernels import emulator_scan as es
+    from v2e_tpu_torch.parallel.mesh import Mesh
+
+    counters = {"refractory_count": es.refractory_count, "refractory_apply": es.refractory_apply,
+                "refractory_scan": es.refractory_scan, "scan": es.scan}
+    cases = [(None, H, W, 2), (None, H, W, 3), ("noisy", H, W, 2), ("noisy", H, W, 3),
+             (None, *PIXEL_LARGE)]
+    n = 1 + PIXEL_CHUNKS * PIXEL_F
+    times = np.arange(n) / (SRC_FPS * PIXEL_U)
+    out = {}
+    for preset, h, w, S in cases:
+        frames = scene(torch, dev, n, h, w, PIXEL_U)
+
+        def emulator(mesh):
+            em = EventEmulator(**CLI_EMULATOR, seed=42, shuffle_events_within_iteration=False,
+                               device=dev, mesh=mesh, pad_rows=(-h) % S if mesh else 0)
+            if preset:
+                em.set_dvs_params(preset)
+            return em
+
+        ev1, ms1 = run_stream(torch, np, emulator(None), frames, times, PIXEL_F, PIXEL_CHUNKS)
+        for c in counters.values():
+            c.launches = 0
+        with PlainScansRefused():
+            ev2, ms2 = run_stream(torch, np, emulator(Mesh([[dev] * S], ("data", "spatial"))),
+                                  frames, times, PIXEL_F, PIXEL_CHUNKS)
+        launches = {k: c.launches for k, c in counters.items()}
+        tag = f"{preset or 'R=0.5ms'} {w}x{h} S={S}"
+        if not np.array_equal(ev1, ev2):
+            raise AssertionError(f"[pixel] {tag}: {len(ev2)} events on strips, {len(ev1)} on "
+                                 "one device, not equal")
+        n_chunks = PIXEL_CHUNKS * S
+        want = ({"refractory_count": n_chunks, "refractory_apply": n_chunks * PIXEL_F,
+                 "refractory_scan": 0, "scan": 0} if preset is None else
+                {"refractory_count": 0, "refractory_apply": 0, "refractory_scan": 0,
+                 "scan": n_chunks})
+        if launches != want:
+            raise AssertionError(f"[pixel] {tag}: launches {launches}, want {want}")
+        log(f"[pixel] {tag}{' (1 pad row)' if h % S else ''}: {len(ev1)} events equal to "
+            f"the single device's bit for bit; launches {launches}; {ms2:.2f} ms per chunk "
+            f"of {PIXEL_F} frames on strips, {ms1:.2f} ms on one device")
+        out[tag] = {"events": len(ev1), "ms": ms2, "ms_one_device": ms1, "launches": launches}
+        del frames
+    return out
+
+
+def split_k1(torch, es, args, S, plain=False):
+    """K1's halves (or their plain versions) over S row strips of `args`
+    (refr_inputs), the strips' K combined per frame on the card; returns
+    what refractory_scan returns."""
+    from v2e_tpu_torch.parallel.mesh import strip_bounds
+
+    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R = args
+    count = es.refractory_count_plain if plain else es.refractory_count
+    apply = es.refractory_apply_plain if plain else es.refractory_apply
+    F, h, w = lp.shape
+    st = []
+    for a, b in strip_bounds(h, S):
+        rows = [x[..., a:b, :].clone(memory_format=torch.contiguous_format)
+                for x in (lp, leak, shot, pos, neg, base, mem)]
+        st.append(rows + [torch.empty((F, b - a, w), dtype=torch.int16, device=lp.device),
+                          torch.empty((F, b - a, w), dtype=torch.int16, device=lp.device),
+                          torch.zeros(F, dtype=torch.int32, device=lp.device)])
+    for s in st:
+        count(s[0], s[1], s[3], s[4], s[5], s[9], 0)
+    Ks = []
+    for f in range(F):
+        K = torch.stack([s[9][f] for s in st]).amax()
+        Ks.append(K)
+        for s in st:
+            apply(*s[:7], dts, t_prevs, R, K, f, s[7], s[8], s[9])
+    return (torch.cat([s[5] for s in st]), torch.cat([s[6] for s in st]),
+            torch.cat([s[7] for s in st], 1), torch.cat([s[8] for s in st], 1), torch.stack(Ks))
+
+
+def phase_k1_halves(torch, dev, launches):
+    """`[k1-halves]`: K1's two halves over 3 strips at run B's shape (96
+    frames of 260x346 at 1/360 s, R = 0.5 ms, refr_inputs) against their
+    plain versions and against K1 on the whole plane, all bit for bit; each
+    half timed on one strip (the first, 86 of 260 rows) beside its plain version and
+    its bound, and the split chunk beside K1's.  Returns the two kernels'
+    entries with the launches of the [pixel] run `launches`."""
+    from v2e_tpu_torch.ops.kernels import emulator_scan as es
+
+    S, F = 3, PIXEL_F
+    args = refr_inputs(torch, dev, F, 1.0 / (SRC_FPS * PIXEL_U), 0.0005)
+    before = (es.refractory_count.launches, es.refractory_apply.launches)
+    got = split_k1(torch, es, args, S)
+    want = split_k1(torch, es, args, S, plain=True)
+    whole = es.refractory_scan(*args)
+    torch.cuda.synchronize()
+    for name, g, p, k in zip(("base", "mem", "counts", "i0", "K"), got, want, whole):
+        if not (torch.equal(g, p) and torch.equal(g, k)):
+            raise AssertionError(f"[k1-halves] {name}: the halves differ from their plain "
+                                 "versions or from K1")
+    if not bool(want[3].any()):
+        raise AssertionError("[k1-halves] the test data leaves the filter idle")
+    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R = args
+    rows = H // S
+    strip = [x[..., :rows, :].clone(memory_format=torch.contiguous_format)
+             for x in (lp, leak, shot, pos, neg, base, mem)]
+    counts = torch.empty((F, rows, W), dtype=torch.int16, device=dev)
+    i0 = torch.empty_like(counts)
+    kmax = torch.zeros(F, dtype=torch.int32, device=dev)
+    K = whole[4][0].clone()
+
+    def count(fn=es.refractory_count):
+        fn(strip[0], strip[1], strip[3], strip[4], strip[5], kmax, 0)
+
+    def apply(fn=es.refractory_apply):
+        fn(*strip, dts, t_prevs, R, K, 0, counts, i0, kmax)
+
+    ms = {"count": time_device_ms(torch, count, reps=200),
+          "apply": time_device_ms(torch, apply, reps=200),
+          "count_plain": time_ms(torch, lambda: count(es.refractory_count_plain), reps=20),
+          "apply_plain": time_ms(torch, lambda: apply(es.refractory_apply_plain), reps=20),
+          "split_chunk": time_ms(torch, lambda: split_k1(torch, es, args, S), reps=3),
+          "k1_chunk": time_ms(torch, lambda: es.refractory_scan(*args), reps=5)}
+    es.refractory_count.launches, es.refractory_apply.launches = before
+    npix = rows * W
+    # each input read once, each output written once: the count reads lp,
+    # leak, the thresholds and base and writes base; the apply (with the
+    # next frame's count) reads lp, shot, the thresholds, base, memory and
+    # the next leak and writes base, memory, counts and i0
+    b_count = bound(npix * 24, npix * 12)
+    b_apply = bound(npix * 37, npix * 40)
+    b_chunk = bound(F * H * W * 13 + H * W * 24, F * H * W * 40)  # K1's own bound
+    log(f"[k1-halves] 3 strips of {F} frames at {W}x{H}: counts, i0, K, base and memory "
+        f"equal to the plain versions and to K1 bit for bit; on one strip of {rows} rows: "
+        f"count {ms['count'] * 1e3:.2f} us (plain {ms['count_plain']:.3f} ms, bound "
+        f"{b_count[0] * 1e3:.3f} us), apply {ms['apply'] * 1e3:.2f} us (plain "
+        f"{ms['apply_plain']:.3f} ms, bound {b_apply[0] * 1e3:.3f} us); the split chunk "
+        f"{ms['split_chunk']:.3f} ms with the host's enqueue ({2 * F * S} launches), K1 "
+        f"{ms['k1_chunk']:.3f} ms; K1's bound for the chunk {b_chunk[0]:.4f} ms")
+    common = {"route": "cuda", "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
+              "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:247", "max_abs_err": 0.0,
+              "library_ms": None, "split_chunk_ms": ms["split_chunk"],
+              "k1_chunk_ms": ms["k1_chunk"], "k1_chunk_bound_ms": b_chunk[0]}
+    return [dict(common, name="refractory_count", launches=launches["refractory_count"],
+                 ms=ms["count"], plain_ms=ms["count_plain"], bound_ms=b_count[0],
+                 bound_by=b_count[1]),
+            dict(common, name="refractory_apply", launches=launches["refractory_apply"],
+                 ms=ms["apply"], plain_ms=ms["apply_plain"], bound_ms=b_apply[0],
+                 bound_by=b_apply[1])]
+
+
+def pixel_sums(np, ev, h, w):
+    """Each pixel's signed event count."""
+    m = np.zeros((h, w), np.int64)
+    np.add.at(m, (ev[:, 2].astype(np.int64), ev[:, 1].astype(np.int64)),
+              np.where(ev[:, 3] > 0, 1, -1))
+    return m
+
+
+def phase_segment(torch, np, dev):
+    """`[segment]`: EventEmulator in 4 time segments on the card (warm-up 8,
+    3 chunks of run A's 768 frames at U = 96, the CLI's emulator defaults
+    without leak) against the continuous run, twice: with R = 0.5 ms (K1
+    once per segment) and with R = 0 (K2 once per segment).  The event
+    totals within 2.5 % of the continuous run's (tests/test_parallel.py's
+    bound for long chunks); with R = 0 each pixel's signed count within one
+    threshold crossing per seam (3 in a chunk and one at each later
+    chunk's start), the bound parallel/convert.py states; with R > 0 a
+    fresh segment also forgets the refractory filter's lag, so that
+    displacement is printed, not held.  Returns the numbers."""
+    from v2e_tpu_torch.emulator import EventEmulator
+    from v2e_tpu_torch.ops.kernels import emulator_scan as es
+    from v2e_tpu_torch.parallel.convert import make_segment_mesh
+
+    F = 8 * SEG_U
+    n = 1 + SEG_CHUNKS * F
+    frames = scene(torch, dev, n, H, W, SEG_U)
+    times = np.arange(n) / (SRC_FPS * SEG_U)
+    card = torch.device(dev.type, 0) if dev.type == "cuda" else dev
+    seams = SEG_CHUNKS * (SEG_S - 1) + SEG_CHUNKS - 1
+    out, bad = {}, []
+    for R, kernel in ((0.0005, es.refractory_scan), (0.0, es.scan)):
+        kw = dict(CLI_EMULATOR, leak_rate_hz=0.0, refractory_period_s=R, seed=42,
+                  shuffle_events_within_iteration=False, device=dev)
+        ev1, ms1 = run_stream(torch, np, EventEmulator(**kw), frames, times, F, SEG_CHUNKS)
+        kernel.launches = 0
+        seg = EventEmulator(mesh=make_segment_mesh(SEG_S, card), parallel_mode="segment",
+                            segment_warmup=SEG_W, **kw)
+        with PlainScansRefused():
+            ev2, ms2 = run_stream(torch, np, seg, frames, times, F, SEG_CHUNKS)
+        launches = kernel.launches
+        delta = int(np.abs(pixel_sums(np, ev1, H, W) - pixel_sums(np, ev2, H, W)).max())
+        rate = (len(ev2) - len(ev1)) / len(ev1)
+        tag = f"R={R * 1e3:g}ms"
+        log(f"[segment] {tag}: {SEG_S} segments, warm-up {SEG_W}, {SEG_CHUNKS} chunks of {F} "
+            f"frames at {W}x{H}: {kernel.__name__} {launches} launches; events {len(ev2)} "
+            f"against {len(ev1)} continuous ({rate:+.3%}), largest per-pixel displacement "
+            f"{delta} crossings over {seams} seams; {ms2:.2f} ms per chunk, continuous "
+            f"{ms1:.2f} ms")
+        if launches != SEG_S * SEG_CHUNKS or abs(rate) > 0.025 or (R == 0 and delta > seams):
+            bad.append(tag)
+        out[tag] = {"ms": ms2, "ms_continuous": ms1, "events": len(ev2),
+                    "events_continuous": len(ev1), "max_pixel_delta": delta,
+                    "launches": launches}
+    if bad:
+        raise AssertionError(f"[segment] {bad}: launches, totals or the seam bound")
+    return out
+
+
+def ddp_batch(np, shape):
+    """A seeded global batch of random triplets, shape (n, h, w, base)."""
+    n, h, w, _ = shape
+    rng = np.random.default_rng(3)
+    batch = {k: (0.3 * rng.normal(size=(n, 1, h, w))).astype(np.float32)
+             for k in ("I0", "I1", "It")}
+    batch["t"] = rng.uniform(0.1, 0.9, (n,)).astype(np.float32)
+    return batch
+
+
+def ddp_rank(rank, world, port, out, device, shape):
+    """One rank of `[ddp]` on `device`: one step, its launches and (rank 0)
+    its loss and weights; then DDP_STEPS steps timed with the all-reduce and
+    as many without (no_sync)."""
+    import contextlib
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import v2e_tpu_torch.ops.kernels.warp as warp_mod
+    from v2e_tpu_torch.models import train
+
+    backwarp_mod = importlib.import_module("v2e_tpu_torch.models.backwarp")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain warp ran in the data-parallel step")
+    if torch.device(device).type == "cuda":  # on the card the step must reach K3
+        warp_mod.warp_plain = warp_mod.warp_plain_vjp = backwarp_mod.warp_plain = refuse
+    dev = train.init_ranks(device, rank, world, f"tcp://localhost:{port}")
+    try:
+        state = train.replicate_state(
+            train.create_train_state(seed=0, base=shape[3], device=dev))
+        step = train.make_train_step()
+        batch = train.shard_batch(ddp_batch(np, shape))
+        warp_mod.bilinear_warp.launches = warp_mod.bilinear_warp_vjp.launches = 0
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        result = {"launches": [warp_mod.bilinear_warp.launches,
+                               warp_mod.bilinear_warp_vjp.launches],
+                  "backend": dist.get_backend()}
+        if rank == 0:
+            params = [p for net in (state.flow_net, state.interp_net)
+                      for p in train.unwrap(net).parameters()]
+            result["loss"] = float(metrics["loss"])
+            result["weights"] = [p.detach().cpu().clone() for p in params]
+            result["grads"] = [p.grad.detach().cpu().clone() for p in params]
+
+        def median_ms(local):
+            ms = []
+            for _ in range(DDP_STEPS):
+                with contextlib.ExitStack() as stack:
+                    if local:
+                        stack.enter_context(state.flow_net.no_sync())
+                        stack.enter_context(state.interp_net.no_sync())
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    step(state, batch)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(ms))
+
+        result["ms"] = median_ms(False)
+        result["ms_local"] = median_ms(True)
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_ddp(torch, np, dev, tmp):
+    """`[ddp]`: train_slomo's step at SuperSloMo's full width (base 32,
+    256x320, global batch 8) on two ranks of the card over gloo (DDP),
+    against one process on the whole batch, with cuDNN's TF32 on as
+    train_slomo runs (the method and tolerances of `[train-small]`'s card
+    check): the loss within 1e-3 relative, the ranks' averaged gradients
+    within 1e-3 of their largest, and Adam on those gradients giving the
+    ranks' weights (1e-6 of the largest); the weights after the whole step printed (Adam's first step
+    moves each weight by about lr times the sign of its gradient, so a
+    gradient near zero whose sign the batch split turns moves it by 2 lr).
+    Each rank launches K3 and its VJP 6 times and no plain warp.  Prints
+    the step's median ms and the all-reduce's share (the step against the
+    same step under no_sync)."""
+    import torch.multiprocessing as mp
+
+    from v2e_tpu_torch.models import train
+
+    mp.spawn(ddp_rank, args=(DDP_RANKS, train.free_port(), tmp, str(dev), DDP_SHAPE),
+             nprocs=DDP_RANKS)
+    ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(DDP_RANKS)]
+    r0 = ranks[0]
+    state = train.create_train_state(seed=0, base=DDP_SHAPE[3], device=dev)
+    params = [p for net in (state.flow_net, state.interp_net) for p in net.parameters()]
+    b = train.batch_to(ddp_batch(np, DDP_SHAPE), dev)
+    loss, _ = train.slomo_loss(state.flow_net, state.interp_net, b["I0"], b["I1"], b["It"], b["t"])
+    loss.backward()
+    loss = float(loss.detach())
+    grads = [p.grad.detach().cpu().clone() for p in params]
+    g_err = (max(float((a - g).abs().max()) for a, g in zip(r0["grads"], grads))
+             / max(float(g.abs().max()) for g in grads))
+    state.optimizer.step()  # one process's whole step
+    raw = [p.detach().cpu().clone() for p in params]
+    # Adam afresh from the same weights on the ranks' averaged gradients
+    state = train.create_train_state(seed=0, base=DDP_SHAPE[3], device=dev)
+    params = [p for net in (state.flow_net, state.interp_net) for p in net.parameters()]
+    for p, g in zip(params, r0["grads"]):
+        p.grad = g.to(dev)
+    state.optimizer.step()
+    scale = max(float(w.abs().max()) for w in raw)
+    adam_err = max(float((p.detach().cpu() - w).abs().max())
+                   for p, w in zip(params, r0["weights"])) / scale
+    raw_err = max(float((a - w).abs().max()) for a, w in zip(r0["weights"], raw)) / scale
+    l_err = abs(r0["loss"] - loss) / abs(loss)
+    if (l_err > 1e-3 or g_err > 1e-3 or adam_err > 1e-6
+            or any(r["launches"] != [6, 6] for r in ranks)):
+        raise AssertionError(f"[ddp] loss {r0['loss']} against {loss} ({l_err:.2e}), "
+                             f"gradients {g_err:.2e} and Adam's weights {adam_err:.2e} of "
+                             f"their largest, launches {[r['launches'] for r in ranks]}")
+    ms, ms_local = r0["ms"], r0["ms_local"]
+    share = (ms - ms_local) / ms
+    n, h, w, base = DDP_SHAPE
+    log(f"[ddp] {DDP_RANKS} ranks on {dev} over {r0['backend']}, global batch {n} of {h}x{w}, "
+        f"base {base}: loss {r0['loss']:.5f} against one process's {loss:.5f} "
+        f"({l_err:.2e}), averaged gradients within {g_err:.2e} of their largest, Adam on them "
+        f"{adam_err:.2e}; weights after the step {raw_err:.2e} of their largest (2 lr = "
+        f"{2e-4 / scale:.2e}); K3 and VJP launches per rank {[r['launches'] for r in ranks]}; "
+        f"step {ms:.1f} ms (median of {DDP_STEPS}; {n / ms * 1e3:.1f} samples/s), "
+        f"{ms_local:.1f} ms without the all-reduce: its share {share:.1%}")
+    return {"ms": ms, "ms_without_allreduce": ms_local, "allreduce_share": share,
+            "loss_rel_err": l_err, "grads_rel_err": g_err, "adam_rel_err": adam_err,
+            "weights_rel_err": raw_err}
+
+
+def phase_cli_parallel(np, tmp):
+    """`[cli-parallel]`: run B's flags (emulator seed 7) in process on one
+    device, then `python -m v2e_tpu_torch` with --devices 2 --parallel_mode
+    segment: on one card it logs the clamp warning and writes the same
+    events."""
+    from v2e_tpu_torch import cli
+
+    argv = ["-i", os.path.join(tmp, "frames"), "--input_frame_rate", str(SRC_FPS),
+            "--allow_random_slomo", "--dvs_params", "noisy", "--auto_timestamp_resolution",
+            "False", "--timestamp_resolution", "0.003", "--skip_video_output",
+            "--dvs_emulator_seed", "7", "--dvs_text", "ev.txt"]
+    one, two = os.path.join(tmp, "cli-one"), os.path.join(tmp, "cli-two")
+    cli.run(argv + ["-o", one], device="cuda")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "v2e_tpu_torch", *argv, "-o", two,
+                           "--devices", "2", "--parallel_mode", "segment"],
+                          capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t
+    ev = [np.loadtxt(os.path.join(d, "ev.txt"), comments="#") for d in (one, two)]
+    warned = "--devices 2 > 1 available; using 1" in proc.stderr
+    if proc.returncode or not warned or not np.array_equal(ev[0], ev[1]) or not len(ev[0]):
+        raise AssertionError(f"[cli-parallel] exit {proc.returncode}, clamp warning {warned}, "
+                             f"events {len(ev[1])} against {len(ev[0])}: "
+                             f"{proc.stderr[-1500:]}")
+    log(f"[cli-parallel] --devices 2 --parallel_mode segment on one card: the clamp warning, "
+        f"{len(ev[1])} events equal to the single-device run's; {wall:.2f} s in a fresh process")
+
+
+def phase_dryrun():
+    """`[dryrun]`: `python -m v2e_tpu_torch.parallel.dryrun 2` on the card."""
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "v2e_tpu_torch.parallel.dryrun", "2"],
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip OK")]
+    if proc.returncode or not lines:
+        raise AssertionError(f"[dryrun] exit {proc.returncode}: {proc.stdout[-1000:]} "
+                             f"{proc.stderr[-1500:]}")
+    log(f"[dryrun] {lines[0]} ({time.perf_counter() - t:.2f} s)")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -2391,6 +2871,9 @@ def main() -> int:
         t = time.perf_counter()
         syn_launches, syn_calls = phase_synthetic_cli(torch, np, tmp, counters)
         log(f"[cli] runs F, G, H {time.perf_counter() - t:.2f} s")
+        t = time.perf_counter()
+        phase_cli_parallel(np, tmp)
+        log(f"[cli-parallel] {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     gens = phase_synthetic_gens(torch, np, dev)
@@ -2462,6 +2945,23 @@ def main() -> int:
     k3["launches_train"] = train_launches["bilinear_warp"]
     k3["vjp"] = vjp["name"]  # the VJP's numbers are in its own entry
 
+    t = time.perf_counter()
+    pixel = phase_pixel(torch, np, dev)
+    log(f"[pixel] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    halves = phase_k1_halves(torch, dev, pixel[f"R=0.5ms {W}x{H} S=3"]["launches"])
+    log(f"[k1-halves] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    segment = phase_segment(torch, np, dev)
+    log(f"[segment] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ddp = phase_ddp(torch, np, dev, tmp)
+    log(f"[ddp] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    phase_dryrun()
+    log(f"[dryrun] {time.perf_counter() - t:.2f} s")
+
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     log("[variants] " + json.dumps({"variants": variants, "resume": resume,
                                     "run_launches": {k: cli_launches[k] for k in "DE"}}))
@@ -2469,7 +2969,8 @@ def main() -> int:
                                      "run_launches": syn_launches}))
     log("[native] " + json.dumps({"host_cpu": cpu_model(), "functions": host_ms}))
     log("[training] " + json.dumps(training))
-    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5]}))
+    log("[parallel] " + json.dumps({"pixel": pixel, "segment": segment, "ddp": ddp}))
+    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, *halves]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

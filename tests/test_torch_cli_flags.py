@@ -1,8 +1,7 @@
 """The port's CLI (v2e_tpu_torch.cli) on the CPU: its video and AEDAT-2
-outputs, the multi-GPU flags it turns away with a non-zero exit (each
-names the ROADMAP item that will port its path), the sink, SloMo,
-emulator-variant and synthetic-input flags it runs, and its import
-boundary (no jax, no v2e_tpu).  test_torch_cli.py
+outputs, the multi-device flags, the sink, SloMo, emulator-variant and
+synthetic-input flags it runs, and its import boundary (no jax, no
+v2e_tpu).  test_torch_cli.py
 holds the CLI against the JAX package's.
 """
 import logging
@@ -56,12 +55,17 @@ def test_cli_writes_videos_and_aedat(frames_dir, tmp_path):
     ["--devices", "2"],
     ["--parallel_mode", "segment"],
 ], ids=lambda f: f[0].lstrip("-"))
-def test_rejected_flags_exit_nonzero(frames_dir, tmp_path, caplog, flags):
-    rc = cli.main(["-i", frames_dir, "--input_frame_rate", "30", "-o", str(tmp_path / "out")]
-                  + flags, device="cpu")
-    assert rc == 2
-    assert "ROADMAP" in caplog.text and flags[0] in caplog.text
-    assert not (tmp_path / "out").exists()
+def test_parallel_flags_write_the_single_device_events(frames_dir, tmp_path, flags):
+    """The multi-device flags the port once turned away: each exits 0 on
+    the CPU and writes the single-device run's events (two strips of the
+    CPU; segment mode with one device is the single-device run)."""
+    argv = ["-i", frames_dir, "--input_frame_rate", "30", "--disable_slomo", "--no_shuffle",
+            "--dvs_text", "ev.txt", "--dvs_emulator_seed", "5", "--skip_video_output"]
+    assert cli.main(argv + ["-o", str(tmp_path / "one")], device="cpu") == 0
+    assert cli.main(argv + ["-o", str(tmp_path / "out")] + flags, device="cpu") == 0
+    ev = [np.loadtxt(tmp_path / d / "ev.txt", comments="#") for d in ("one", "out")]
+    assert len(ev[0]) > 100
+    np.testing.assert_array_equal(ev[0], ev[1])
 
 
 SLOMO = ["--slomo_model", GOLDEN, "--batch_size", "2", "--auto_timestamp_resolution", "False",
@@ -186,7 +190,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         " v2e_tpu_torch.synthetic.device, v2e_tpu_torch.analysis.thres_estimator,"
         " v2e_tpu_torch.native, v2e_tpu_torch.io.aedat4, v2e_tpu_torch.io.hdf5,"
         " v2e_tpu_torch.models.slomo_cache, v2e_tpu_torch.examples.library_embedding,"
-        " v2e_tpu_torch.models.train, v2e_tpu_torch.io.ddd, v2e_tpu_torch.utils.roi;"
+        " v2e_tpu_torch.models.train, v2e_tpu_torch.io.ddd, v2e_tpu_torch.utils.roi,"
+        " v2e_tpu_torch.parallel, v2e_tpu_torch.parallel.convert, v2e_tpu_torch.parallel.dryrun;"
         "from v2e_tpu_torch.dataset_tools import batch_convert, ddd_extract_data,"
         " ddd_find_thresholds, ddd_plot_event_counts, ddd_v2e, eval_slomo_ckpt,"
         " make_training_videos, train_slomo;"

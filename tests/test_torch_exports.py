@@ -26,8 +26,6 @@ BY_DESIGN = {
     ("models", "init_unet"): "a UNet draws its own weights; seeded weights come "
                              "from init_random_slomo_params",
 }
-# packages still to port (ROADMAP.md §1)
-NOT_PORTED_YET = {"parallel": "item 6, parallel (multi-GPU)"}
 # names the port exports beyond v2e_tpu's
 PORT_ONLY = {("", "resolve_device"), ("models", "UNet"), ("synthetic", "make_source_frames")}
 PACKAGES = ["", "emulator", "models", "io", "ops", "utils", "render", "analysis",
@@ -37,10 +35,6 @@ PACKAGES = ["", "emulator", "models", "io", "ops", "utils", "render", "analysis"
 @pytest.mark.parametrize("pkg", PACKAGES, ids=lambda p: p or "root")
 def test_all_matches_v2e_tpu(pkg):
     ref = importlib.import_module("v2e_tpu" + (f".{pkg}" if pkg else ""))
-    if pkg in NOT_PORTED_YET:
-        with pytest.raises(ImportError):
-            importlib.import_module(f"v2e_tpu_torch.{pkg}")
-        return
     port = importlib.import_module("v2e_tpu_torch" + (f".{pkg}" if pkg else ""))
     want = {n for n in ref.__all__ if (pkg, n) not in BY_DESIGN}
     have = {n for n in port.__all__ if (pkg, n) not in PORT_ONLY}

@@ -645,3 +645,112 @@ def test_synthetic_cli_device_path_on_card_matches_cpu(cuda, tmp_path, refractor
     assert kernel.launches > before
     assert len(events["cpu"]) > 300
     np.testing.assert_array_equal(events["cuda"], events["cpu"])
+
+
+# ---- several devices: K1's halves, pixel strips and time segments ----
+
+def card_strips(cuda, n):
+    from v2e_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh([[cuda] * n], ("data", "spatial"))
+
+
+@pytest.mark.parametrize("F,H,W,S", [(96, 260, 346, 1), (96, 260, 346, 2), (96, 260, 346, 3),
+                                     (24, 720, 1280, 4)])
+def test_refractory_halves_match_plain(cuda, F, H, W, S):
+    """K1's two halves over S strips of one card, K combined per frame,
+    against the plain version of K1 and K1 itself on the whole plane: all
+    equal bit for bit; one count and F applies per strip."""
+    from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_apply, refractory_count
+    from v2e_tpu_torch.parallel.mesh import strip_bounds
+
+    R = 0.0005
+    args = refractory_inputs(cuda, F, H, W, R)
+    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, _ = args
+    want = refractory_scan_plain(*args)
+    whole = refractory_scan(*args)
+    st = []
+    for a, b in strip_bounds(H, S):
+        rows = lambda x: x[..., a:b, :].clone(memory_format=torch.contiguous_format)
+        st.append([rows(lp), rows(leak), rows(shot), rows(pos), rows(neg), rows(base),
+                   rows(mem), torch.empty((F, b - a, W), dtype=torch.int16, device=cuda),
+                   torch.empty((F, b - a, W), dtype=torch.int16, device=cuda),
+                   torch.zeros(F, dtype=torch.int32, device=cuda)])
+    counts = (refractory_count.launches, refractory_apply.launches)
+    for s in st:
+        refractory_count(s[0], s[1], s[3], s[4], s[5], s[9], 0)
+    Ks = []
+    for f in range(F):
+        K = torch.stack([s[9][f] for s in st]).amax()
+        Ks.append(K)
+        for s in st:
+            refractory_apply(s[0], s[1], s[2], s[3], s[4], s[5], s[6], dts, t_prevs, R, K, f,
+                             s[7], s[8], s[9])
+    torch.cuda.synchronize()
+    assert (refractory_count.launches - counts[0], refractory_apply.launches - counts[1]) == (
+        S, S * F)
+    got = (torch.cat([s[5] for s in st]), torch.cat([s[6] for s in st]),
+           torch.cat([s[7] for s in st], 1), torch.cat([s[8] for s in st], 1), torch.stack(Ks))
+    for name, g, p, k in zip(("base", "mem", "counts", "i0", "K"), got, want, whole):
+        assert torch.equal(g, p), name
+        assert torch.equal(g, k), name
+    assert bool(want[3].any())
+
+
+@pytest.mark.parametrize("name", ["refractory", "k2", "scidvs", "csdvs", "per_frame"])
+def test_strips_on_card_equal_one_plane(cuda, name):
+    """`emulate_chunk_sharded` over 3 strips of the card equals
+    `emulate_chunk_apply` on the whole plane, every output and the state
+    bit for bit (K1's halves, K2 per strip, the SciDVS loop, the CSDVS
+    surround gathered, the probe and states)."""
+    import dataclasses
+
+    from v2e_tpu_torch.emulator.core import emulate_chunk_apply
+    from v2e_tpu_torch.parallel import emulate_chunk_sharded
+
+    configs = dict(variant_configs(), refractory=dataclasses.replace(
+        variant_configs()["per_frame"], probe=None, emit_states=()))
+    configs["k2"] = dataclasses.replace(configs["refractory"], refractory_period_s=0.0)
+    cfg = configs[name]
+    params, state, frames, times, draws = (
+        moved(x, cuda) if hasattr(x, "__dataclass_fields__") else x
+        for x in variant_inputs(cfg))
+    frames, times = frames.to(cuda), times.to(cuda)
+    draws = {k: (None if v is None else v.to(cuda)) for k, v in draws.items()}
+    s1, o1 = emulate_chunk_apply(cfg, params, state, frames, times, draws)
+    s2, o2 = emulate_chunk_sharded(cfg, card_strips(cuda, 3), params, state, frames, times,
+                                   draws=draws)
+    torch.cuda.synchronize()
+    for k in o1:
+        pairs = [(o1[k][n], o2[k][n]) for n in o1[k]] if k == "states" else [(o1[k], o2[k])]
+        for a, b in pairs:
+            assert torch.equal(a, b), k
+    for f in dataclasses.fields(s1):
+        a, b = getattr(s1, f.name), getattr(s2, f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
+
+
+def test_segments_on_card_run_k1_once_each(cuda):
+    """`emulate_chunk_segmented` with 4 segments on the card: K1 launched
+    once per segment, the events those of the same run on the CPU at
+    >= 99.9 % of pixel-frames (the card's and the CPU's log differ by an
+    ulp at some levels)."""
+    from v2e_tpu_torch.emulator.config import EmulatorConfig
+    from v2e_tpu_torch.parallel.convert import emulate_chunk_segmented, make_segment_mesh
+
+    cfg = EmulatorConfig(refractory_period_s=0.0005, leak_rate_hz=0.0, shot_noise_rate_hz=2.0)
+    params, state, frames, times, draws = variant_inputs(cfg, F=64)
+    outs = []
+    for d in (cuda, torch.device("cpu")):
+        launches = refractory_scan.launches
+        _, o = emulate_chunk_segmented(
+            cfg, moved(params, d), moved(state, d), frames.to(d), times.to(d),
+            frames[0].to(d).expand(9, *frames.shape[1:]), torch.zeros(9, device=d), 4, 8,
+            make_segment_mesh(4, d), {k: (None if v is None else v.to(d))
+                                      for k, v in draws.items()})
+        outs.append(o)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert refractory_scan.launches - launches == 4
+    assert int(outs[1]["ev_count"].abs().sum()) > 1000
+    assert float((outs[0]["ev_count"].cpu() != outs[1]["ev_count"]).float().mean()) <= 1e-3

@@ -1,17 +1,15 @@
 """The v2e command-line flags (a copy of v2e_tpu/args.py): the same flag
 names, groups and defaults, so conversion recipes run unchanged.
 
-`check_ported` turns away, with a message that names the ROADMAP item that
-will port it, every flag whose path the port does not have yet; none is
-ignored.  `log_layout_flags` says what the port runs for the TPU layout
-flags (--unet_conv, --warp_precision).
+Every flag runs its path.  `log_layout_flags` says what the port runs for
+the TPU layout flags (--unet_conv, --warp_precision).
 """
 from __future__ import annotations
 
 import argparse
 import logging
 import os
-from typing import Optional, Tuple
+from typing import Tuple
 
 from v2e_tpu_torch.models.unet import DENSE_LAYOUTS, fold_levels
 
@@ -266,8 +264,9 @@ def v2e_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                             help="restore emulator state from a .npz written "
                                  "by --checkpoint_state before converting")
     perf_group.add_argument("--devices", type=int, default=1,
-                            help="number of accelerator devices for the "
-                                 "conversion (multi-device is not ported yet)")
+                            help="number of CUDA devices for the conversion "
+                                 "(clamped to the visible cards; a run on the "
+                                 "CPU puts every strip or segment on the CPU)")
     perf_group.add_argument("--parallel_mode", choices=("pixel", "segment"),
                             default="pixel",
                             help="multi-chip strategy with --devices>1: "
@@ -327,28 +326,6 @@ def v2e_check_dvs_exposure_args(args):
     if len(dvs_exposure) != 2:
         raise ValueError("duration/count needs two parameters, e.g. 'duration 0.01'")
     return exposure_mode, float(dvs_exposure[1]), None
-
-
-# the ROADMAP.md item ("Still to port") that will carry the paths the
-# port turns away
-_PARALLEL = "parallel (multi-GPU)"
-
-# (flag, whether the parsed value asks for the path, ROADMAP item)
-_NOT_PORTED = (
-    ("--devices", lambda a: a.devices != 1, _PARALLEL),
-    ("--parallel_mode", lambda a: a.parallel_mode != "pixel", _PARALLEL),
-    ("--segment_warmup", lambda a: a.segment_warmup != 8, _PARALLEL),
-)
-
-
-def check_ported(args) -> Optional[str]:
-    """None when every flag asks for a ported path, else a message naming
-    each flag that does not and the ROADMAP.md item that will port it."""
-    missing = [f"{flag} (ROADMAP.md: {item})" for flag, asked, item in _NOT_PORTED
-               if asked(args)]
-    if not missing:
-        return None
-    return "not ported to v2e_tpu_torch yet: " + "; ".join(missing)
 
 
 def log_layout_flags(args) -> None:

@@ -15,15 +15,15 @@ to the emulator, and --resume_state / --checkpoint_state load the
 emulator's state before the conversion and save it after.  A synthetic
 input (synthetic/) is a generator class named by module path; its frames
 go straight to the emulator, rendered on the device chunk by chunk when no
-input AVI is written (`_run_synthetic`).  --slomo_use_saved records the
+input AVI is written (`_run_synthetic`).  --devices N > 1 runs the
+emulator over a mesh of N cards (`_make_mesh_from_args`): image rows in
+strips (--parallel_mode pixel) or time segments (segment).  --slomo_use_saved records the
 interpolated frames on a first run and replays them on later ones, and
 --slomo_stats_plot plots each chunk's upsampling factor
 (models/pipeline.py).
 
 Runs on the CUDA device; `main(argv, device="cpu")` runs the plain PyTorch
-versions of the kernels on the CPU (the tests do).  The multi-GPU flags,
-whose path is not ported yet, exit with status 2 and a message that names
-the ROADMAP item (args.check_ported).
+versions of the kernels on the CPU (the tests do).
 """
 from __future__ import annotations
 
@@ -40,7 +40,6 @@ import numpy as np
 
 from v2e_tpu_torch.args import (
     SmartFormatter,
-    check_ported,
     log_layout_flags,
     v2e_args,
     v2e_check_dvs_exposure_args,
@@ -57,8 +56,8 @@ logger = logging.getLogger(__name__)
 
 
 class UsageError(ValueError):
-    """A command line the port cannot run: `code` is the exit status (2 for
-    a flag whose path is not ported, 1 without an input)."""
+    """A command line the port cannot run: `code` is the exit status (1
+    without an input)."""
 
     def __init__(self, message: str, code: int):
         super().__init__(message)
@@ -104,8 +103,8 @@ def _feed_renderer(renderer, events, offsets, exposure_mode, height, width, skip
 
 
 def main(argv: Optional[List[str]] = None, device=None) -> int:
-    """The command line: 0 on success, else a UsageError's exit code (2 for
-    a flag whose path is not ported, 1 without an input)."""
+    """The command line: 0 on success, else a UsageError's exit code (1
+    without an input)."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
@@ -120,11 +119,8 @@ def main(argv: Optional[List[str]] = None, device=None) -> int:
 
 def run(argv: Optional[List[str]] = None, device=None) -> Stats:
     """Parse `argv` and convert; returns the run's `Stats`.  Raises
-    UsageError for a flag whose path is not ported or a missing input."""
+    UsageError for a missing input."""
     args, other_args = get_args(argv)
-    missing = check_ported(args)
-    if missing is not None:
-        raise UsageError(missing, 2)
     if args.input is None and args.synthetic_input is None:
         raise UsageError("specify --input video file or image folder, or "
                          "--synthetic_input module", 1)
@@ -165,8 +161,59 @@ def run(argv: Optional[List[str]] = None, device=None) -> Stats:
     return stats
 
 
+def _make_mesh_from_args(args, output_height, device):
+    """The conversion's mesh for --devices > 1: (mesh or None, parallel
+    mode, pad rows).
+
+    --devices clamps to the visible CUDA cards, with the JAX CLI's warning;
+    for a run on the CPU the strips or segments all take the CPU, standing
+    in for JAX's virtual CPU devices.  Pixel mode splits the rows over the
+    mesh's 'spatial' axis; when H does not divide, inert pad rows
+    (EmulatorConfig.pad_rows) round it up, except for CSDVS, whose surround
+    would couple into them: it takes the largest divisor of H instead."""
+    from v2e_tpu_torch.parallel.convert import make_segment_mesh
+    from v2e_tpu_torch.parallel.mesh import Mesh, mesh_devices
+
+    devices = args.devices or 1
+    if devices <= 1:
+        return None, "pixel", 0
+    if device.type == "cuda" and device.index is None:
+        import torch
+
+        avail = torch.cuda.device_count()
+        if devices > avail:
+            logger.warning(f"--devices {devices} > {avail} available; using {avail}")
+            devices = avail
+        if devices <= 1:
+            return None, "pixel", 0
+    if args.parallel_mode == "segment":
+        return make_segment_mesh(devices, device), "segment", 0
+
+    H = output_height or 260
+    pad = (-H) % devices
+    if pad and args.cs_lambda_pixels:
+        s = max(d for d in range(1, devices + 1) if H % d == 0)
+        if s <= 1:
+            logger.warning(f"--devices {devices}: CSDVS forbids row padding and no "
+                           f"divisor of height {H} > 1; running single-device")
+            return None, "pixel", 0
+        if s < devices:
+            logger.warning(f"--devices {devices}: CSDVS forbids row padding; height "
+                           f"{H} shards over {s} devices, {devices - s} idle")
+        devices, pad = s, 0
+    if pad:
+        logger.info(f"padding height {H} -> {H + pad} with inert rows to shard "
+                    f"evenly over {devices} devices")
+    return Mesh([mesh_devices(devices, device)], ("data", "spatial")), "pixel", pad
+
+
 def _make_emulator(args, output_folder, output_width, output_height, device) -> EventEmulator:
+    mesh, parallel_mode, pad_rows = _make_mesh_from_args(args, output_height, device)
     em = EventEmulator(
+        mesh=mesh,
+        parallel_mode=parallel_mode,
+        pad_rows=pad_rows,
+        segment_warmup=args.segment_warmup,
         pos_thres=args.pos_thres,
         neg_thres=args.neg_thres,
         sigma_thres=args.sigma_thres,

@@ -401,6 +401,143 @@ extern "C" int v2e_refractory_scan(const float* lp, const float* leak,
 }
 
 
+// K1's two halves, for pixel strips on several devices
+// (v2e_tpu_torch/parallel/mesh.py): K1 with its per-frame reduction of K
+// lifted out of the kernel, because K1's grid barrier cannot span cards
+// (CUDA has no cooperative launch across devices).  The plain versions are
+// v2e_tpu_torch/ops/kernels/emulator_scan.py::refractory_count_plain and
+// refractory_apply_plain.
+//
+//   refr_count (K1's step 1, frame f): base -= leak[f]; the counts; the
+//     strip's largest count into kmax[f] (block max, one atomicMax a block);
+//   refr_apply (K1's step 3, frame f, given K[f] in device memory): the
+//     filter constants (frame_filter), the counts again from lp and the
+//     leaked base, the filter and base update (apply_pixel), shot reset,
+//     counts and i0 stored; then step 1 of frame f + 1 on the same pixel,
+//     so a chunk takes F + 1 launches per strip.
+// Between the two, the host takes the maximum over the strips' kmax[f]
+// and hands K[f] back to each strip's device.  Each half uses K1's own
+// pixel_count_k1, frame_filter and apply_pixel, built with --fmad=false,
+// so every strip equals K1 on the whole plane bit for bit.
+//
+// Bound on the card: memory bytes, 57 per pixel-frame (count: lp, leak,
+// base, thresholds in, base out; apply: lp, shot, base, memory, thresholds
+// in, base, memory, counts, i0 out), against K1's 13 (the state stays in
+// K1's registers); at the CLI's planes a launch is a few microseconds and
+// the host's reduction between launches costs more.  A thread per pixel
+// over a grid-stride loop, 256 threads a block.
+
+namespace {
+
+constexpr int kSplitThreads = 256;
+
+__device__ __forceinline__ void block_max_to(int c, int* out) {
+  __shared__ int warp_max[kSplitThreads / 32];
+  c = __reduce_max_sync(0xffffffffu, c);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = c;
+  __syncthreads();
+  if (warp == 0) {
+    c = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0;
+    c = __reduce_max_sync(0xffffffffu, c);
+    if (lane == 0 && c > 0) atomicMax(out, c);
+  }
+}
+
+__device__ __forceinline__ int leak_and_count(const float* __restrict__ lp,
+                                              const float* __restrict__ leak,
+                                              const float* __restrict__ pos,
+                                              const float* __restrict__ neg,
+                                              size_t off, int i, float* b) {
+  if (leak != nullptr) *b = *b - leak[off + i];
+  float pe, ne;
+  return pixel_count_k1(lp[off + i], *b, pos[i], neg[i], &pe, &ne);
+}
+
+__global__ void __launch_bounds__(kSplitThreads)
+refr_count(const float* __restrict__ lp, const float* __restrict__ leak,
+           const float* __restrict__ pos, const float* __restrict__ neg,
+           float* __restrict__ base, int* __restrict__ kmax, int f, int npix) {
+  const size_t off = (size_t)f * (size_t)npix;
+  int cmax = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < npix;
+       i += gridDim.x * blockDim.x) {
+    float b = base[i];
+    cmax = max(cmax, leak_and_count(lp, leak, pos, neg, off, i, &b));
+    if (leak != nullptr) base[i] = b;
+  }
+  block_max_to(cmax, kmax + f);
+}
+
+__global__ void __launch_bounds__(kSplitThreads)
+refr_apply(const float* __restrict__ lp, const float* __restrict__ leak,
+           const uint8_t* __restrict__ shot, const float* __restrict__ pos,
+           const float* __restrict__ neg, float* __restrict__ base,
+           float* __restrict__ mem, const float* __restrict__ dts,
+           const float* __restrict__ t_prevs, const int* __restrict__ K,
+           int* __restrict__ kmax, int16_t* __restrict__ count_out,
+           int16_t* __restrict__ i0_out, int f, int n_frames, int npix, float R) {
+  const FrameFilter ff = frame_filter(*K, dts[f], t_prevs[f], R);
+  const size_t off = (size_t)f * (size_t)npix;
+  const bool next = f + 1 < n_frames;
+  int cmax = 0;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < npix;
+       i += gridDim.x * blockDim.x) {
+    const float l = lp[off + i];
+    const float pth = pos[i], nth = neg[i];
+    float b = base[i], mm = mem[i];
+    float pe, ne;
+    const int cnt = pixel_count_k1(l, b, pth, nth, &pe, &ne);
+    const bool sh = shot != nullptr && shot[off + i] != 0;
+    int i0;
+    const int c = apply_pixel(ff, cnt, pe, ne, l, pth, nth, sh, &b, &mm, &i0);
+    count_out[off + i] = (int16_t)c;
+    i0_out[off + i] = (int16_t)i0;
+    mem[i] = mm;
+    if (next) cmax = max(cmax, leak_and_count(lp, leak, pos, neg, off + npix, i, &b));
+    base[i] = b;
+  }
+  if (next) block_max_to(cmax, kmax + f + 1);
+}
+
+int split_blocks(int npix) {
+  const int b = (npix + kSplitThreads - 1) / kSplitThreads;
+  return b < 1 ? 1 : (b > 65535 ? 65535 : b);
+}
+
+}  // namespace
+
+// K1's step 1 for frame f on `stream`: base updated in place, kmax[f]
+// (zero before the call) receives the plane's largest count.  Returns the
+// launch's CUDA error.
+extern "C" int v2e_refractory_count(const float* lp, const float* leak,
+                                    const float* pos, const float* neg,
+                                    float* base, int* kmax, int f, int npix,
+                                    void* stream) {
+  if (npix == 0) return 0;
+  refr_count<<<split_blocks(npix), kSplitThreads, 0, (cudaStream_t)stream>>>(
+      lp, leak, pos, neg, base, kmax, f, npix);
+  return (int)cudaGetLastError();
+}
+
+// K1's step 3 for frame f with the frame's K read from device memory, then
+// step 1 of frame f + 1 (kmax[f + 1], zero before the call) when f + 1 <
+// n_frames.  base and mem updated in place; counts and i0 written at frame
+// f.  Returns the launch's CUDA error.
+extern "C" int v2e_refractory_apply(const float* lp, const float* leak,
+                                    const uint8_t* shot, const float* pos,
+                                    const float* neg, float* base, float* mem,
+                                    const float* dts, const float* t_prevs,
+                                    const int* K, int* kmax, int16_t* counts,
+                                    int16_t* i0, int f, int n_frames, int npix,
+                                    float R, void* stream) {
+  if (npix == 0) return 0;
+  refr_apply<<<split_blocks(npix), kSplitThreads, 0, (cudaStream_t)stream>>>(
+      lp, leak, shot, pos, neg, base, mem, dts, t_prevs, K, kmax, counts, i0,
+      f, n_frames, npix, R);
+  return (int)cudaGetLastError();
+}
+
 // K2: the emulator's sequential core without the refractory filter, the
 // path of every configuration with R <= 0 (the clean and noisy presets).
 //

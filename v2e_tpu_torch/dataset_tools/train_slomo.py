@@ -3,14 +3,23 @@ the card (port of dataset_tools/train_slomo.py).
 
 Samples (I0, It, I1) triplets from videos, optimizes the Super-SloMo losses
 (v2e_tpu_torch/models/train.py: K3 and its VJP kernel for the six
-backwarps of each loss, cuDNN for the UNets, torch.optim.Adam) on one
-device, and checkpoints with torch.save: ``<out>/ckpt/<step>/train_state.pt``
-holds both UNets' state dicts, the optimizer's and the step.  At the end
-the weights are exported to ``<out>/slomo_trained.npz`` in the layout the
-JAX package's tool writes, so --slomo_model loads them in both packages.
+backwarps of each loss, cuDNN for the UNets, torch.optim.Adam), and
+checkpoints with torch.save: ``<out>/ckpt/<step>/train_state.pt`` holds
+both UNets' state dicts, the optimizer's and the step.  At the end the
+weights are exported to ``<out>/slomo_trained.npz`` in the layout the JAX
+package's tool writes, so --slomo_model loads them in both packages.
 --init_from warm-starts the weights (the optimizer starts afresh) from a
-.ckpt, an .npz or such a checkpoint.  Training on several GPUs is ROADMAP
-item 6.
+.ckpt, an .npz or such a checkpoint.
+
+Like the JAX tool it trains on every visible card, data-parallel: run as
+one process, it spawns one process per rank (--devices, by default one
+per card; ranks beyond the cards share them, and on the CPU N ranks share
+it); called inside a process group a caller set up, it trains as this
+process's rank.  The backend is NCCL when every rank has a card of its
+own and gloo when ranks share a device.  Every rank samples the global
+batch from the same seed and keeps its share (models/train.py:
+shard_batch), so the ranks train on the batches one process would; rank
+0 alone logs, checkpoints and exports the npz.
 
 Usage:
   python -m v2e_tpu_torch.dataset_tools.train_slomo -i /data/videos \\
@@ -126,6 +135,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log_every", type=int, default=50)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--extensions", nargs="+", default=[".avi", ".mp4", ".mov"])
+    p.add_argument("--devices", type=int, default=None,
+                   help="ranks to train over, one process each (default: one per "
+                        "visible card; on the CPU, 1); --batch_size is the global "
+                        "batch and must divide by it")
     return p.parse_args(argv)
 
 
@@ -147,10 +160,12 @@ def load_init_params(path: str):
 def save_checkpoint(path: str, state) -> None:
     import torch
 
+    from v2e_tpu_torch.models.train import unwrap
+
     os.makedirs(path, exist_ok=True)
     torch.save({
-        "flow": state.flow_net.state_dict(),
-        "interp": state.interp_net.state_dict(),
+        "flow": unwrap(state.flow_net).state_dict(),
+        "interp": unwrap(state.interp_net).state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "step": state.step,
     }, os.path.join(path, CKPT_FILE))
@@ -171,20 +186,71 @@ class TrainRun:
 
 def run(argv=None, device=None) -> Optional[TrainRun]:
     """Train as the command line asks, on "cuda" unless `device` names
-    another; None when the input holds no video."""
+    another; None when the input holds no video.  Inside an initialized
+    process group this process trains as its rank; otherwise --devices > 1
+    spawns that many ranks and returns rank 0's result."""
     args = parse_args(argv)
     import torch
+    import torch.distributed as dist
 
-    from v2e_tpu_torch.dataset_tools.batch_convert import find_videos
     from v2e_tpu_torch.device import resolve_device
-    from v2e_tpu_torch.models.convert_ckpt import save_slomo_npz, to_jax_params
-    from v2e_tpu_torch.models.train import create_train_state, make_train_step
+    from v2e_tpu_torch.models.train import free_port
 
     dev = resolve_device(device)
+    n = args.devices
+    if n is None:
+        n = torch.cuda.device_count() if dev.type == "cuda" and dev.index is None else 1
+    if dist.is_initialized() or n <= 1:
+        return _train(args, dev)
+    import torch.multiprocessing as mp
+
+    queue = mp.get_context("spawn").SimpleQueue()
+    logger.info(f"training on {n} ranks")
+    # rank 0's result is a few hundred bytes, below a pipe's buffer, so its
+    # put returns before this process reads it and the join cannot wait on it
+    mp.spawn(_rank_main, args=(n, free_port(), argv, str(dev), queue), nprocs=n)
+    return queue.get()
+
+
+def _rank_main(rank: int, world: int, port: int, argv, device: str, queue) -> None:
+    """One spawned rank: join the group, train, hand rank 0's result back."""
+    import torch.distributed as dist
+
+    from v2e_tpu_torch.models.train import init_ranks
+
+    logging.basicConfig(level=logging.INFO if rank == 0 else logging.WARNING)
+    dev = init_ranks(device, rank, world, f"tcp://localhost:{port}")
+    try:
+        result = run(argv, dev)
+        if rank == 0:
+            queue.put(result)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, dev) -> Optional[TrainRun]:
+    """The training loop of this process, rank-aware when a process group
+    is initialized."""
+    import torch.distributed as dist
+
+    from v2e_tpu_torch.dataset_tools.batch_convert import find_videos
+    from v2e_tpu_torch.models.convert_ckpt import save_slomo_npz, to_jax_params
+    from v2e_tpu_torch.models.train import (
+        create_train_state,
+        make_train_step,
+        replicate_state,
+        shard_batch,
+        unwrap,
+    )
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    lead = not dist.is_initialized() or dist.get_rank() == 0
     videos = find_videos(args.input_dir, set(args.extensions))
     if not videos:
         logger.error(f"no videos found under {args.input_dir}")
         return None
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not divide over {world} ranks")
     logger.info(f"training on {len(videos)} videos")
     os.makedirs(args.output_dir, exist_ok=True)
 
@@ -192,8 +258,9 @@ def run(argv=None, device=None) -> Optional[TrainRun]:
     state = create_train_state(args.seed, args.learning_rate, args.base, dev, params)
     if args.init_from:
         logger.info(f"warm-started from {args.init_from}")
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        logger.info("training on one GPU (several GPUs: ROADMAP item 6)")
+    if world > 1:
+        state = replicate_state(state)
+        logger.info(f"data-parallel over {world} ranks ({dist.get_backend()})")
 
     train_step = make_train_step()
     sampler = TripletSampler(videos, args.crop, args.gap, args.seed)
@@ -204,8 +271,10 @@ def run(argv=None, device=None) -> Optional[TrainRun]:
     metrics = {}
     for step in range(1, args.steps + 1):
         batch = sampler.sample_batch(args.batch_size)
+        if world > 1:
+            batch = shard_batch(batch)
         state, metrics = train_step(state, batch)
-        if step % args.log_every == 0:
+        if step % args.log_every == 0 and lead:
             m = {k: float(v) for k, v in metrics.items()}
             rate = step * args.batch_size / (time.time() - t0)
             logger.info(
@@ -213,7 +282,7 @@ def run(argv=None, device=None) -> Optional[TrainRun]:
                 f"l_r={m['l_r']:.4f} l_w={m['l_w']:.4f} "
                 f"l_s={m['l_s']:.4f} ({rate:.1f} samples/s)"
             )
-        if step % args.checkpoint_every == 0 or step == args.steps:
+        if (step % args.checkpoint_every == 0 or step == args.steps) and lead:
             path = os.path.join(ckpt_dir, str(step))
             save_checkpoint(path, state)
             checkpoints.append(path)
@@ -221,12 +290,14 @@ def run(argv=None, device=None) -> Optional[TrainRun]:
     wall = time.time() - t0
     logger.info(f"{args.steps} steps in {wall:.2f} s")
 
-    # also export a portable npz loadable by --slomo_model
-    out_npz = save_slomo_npz(
-        os.path.join(args.output_dir, "slomo_trained.npz"),
-        *to_jax_params(state.flow_net, state.interp_net), dtype=args.export_dtype,
-    )
-    logger.info(f"exported trained weights to {out_npz}")
+    out_npz = os.path.join(args.output_dir, "slomo_trained.npz")
+    if lead:
+        # also export a portable npz loadable by --slomo_model
+        out_npz = save_slomo_npz(
+            out_npz, *to_jax_params(unwrap(state.flow_net), unwrap(state.interp_net)),
+            dtype=args.export_dtype,
+        )
+        logger.info(f"exported trained weights to {out_npz}")
     return TrainRun(args.steps, args.steps * args.batch_size, wall,
                     {k: float(v) for k, v in metrics.items()}, out_npz, checkpoints)
 

@@ -6,8 +6,8 @@ sequential core runs its kernel (K1, or K2 when the refractory period is
 0) whenever its tensors are on a CUDA device and the kernel's plain version
 when they are on the CPU, except for the SciDVS pixel, whose core is a
 plain loop (core.py), as the JAX package sends it to its XLA scan.
-`pad_rows` (the multi-device padding) belongs to the parallel path and is
-not ported.
+`pad_rows` appends inert rows to the pixel plane so that its rows split
+evenly into the strips of a mesh (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -60,6 +60,13 @@ class EmulatorConfig:
     # seed of the emulator's torch.Generator; 0 means fresh entropy
     seed: int = 0
 
+    # rows of inert padding appended to the pixel plane so that H splits
+    # evenly into a mesh's strips: pad pixels have thresholds of 1e9 and
+    # zero noise rates and never emit, and the random draws are made at the
+    # logical shape (core.draw_chunk_noise), so the logical pixels of a
+    # padded run equal those of an unpadded one bit for bit
+    pad_rows: int = 0
+
     # record one pixel's internal states per frame, (x, y)
     probe: Optional[tuple] = None
     # names of the state frames each step returns (emulator.MODEL_STATES)
@@ -95,6 +102,14 @@ class EmulatorConfig:
         return self.shot_noise_rate_hz > 0 and not self.photoreceptor_noise
 
     def validate(self) -> None:
+        if self.pad_rows < 0:
+            raise ValueError(f"pad_rows {self.pad_rows} must be >= 0")
+        if self.pad_rows and self.csdvs_enabled:
+            raise ValueError(
+                "pad_rows is incompatible with the center-surround DVS: the "
+                "surround diffusion would couple logical pixels to the pad "
+                "rows (use a divisor device count instead)"
+            )
         if self.photoreceptor_noise:
             if self.shot_noise_rate_hz == 0:
                 raise ValueError(

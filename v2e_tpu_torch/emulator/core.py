@@ -23,6 +23,15 @@ A chunk is split in two steps:
 Frame f of a chunk takes frame f of the chunk's draws on both paths, so
 tests hand the apply step the draws the JAX package made and compare both
 packages event for event.
+
+Both paths are written as chunk programs (`chunk_program`, a generator):
+where a value couples the whole pixel plane (a frame's largest count K,
+the CSDVS surround) the program yields a request and goes on with the
+answer.  On one device `run_local` answers each request from the
+program's own plane.  Under pixel strips (parallel/mesh.py) one program
+runs per strip, in lock step, and the lead device answers each request
+across the strips (`parallel.mesh._drive`), so a strip computes what the
+same rows of the whole plane compute.
 """
 from __future__ import annotations
 
@@ -48,7 +57,12 @@ from v2e_tpu_torch.ops.core import (
     rescale_intensity_frame,
     subtract_leak_current,
 )
-from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
+from v2e_tpu_torch.ops.kernels.emulator_scan import (
+    refractory_apply,
+    refractory_count,
+    refractory_scan,
+    scan,
+)
 
 Draws = Dict[str, Optional[torch.Tensor]]
 
@@ -58,6 +72,43 @@ CS_NUM_STEPS_PER_TAU = 5
 CS_MAX_STEPS = 1000
 # Euler steps run between two host reads of the stop test
 CS_STEPS_PER_READ = 16
+
+# The requests a chunk program yields (see the module note):
+# (MAX, local maxima) -> the plane's maxima, same shape;
+# (SURROUND, lp, surround, dt) -> the plane's surround after dt (`_update_csdvs`).
+MAX = "max"
+SURROUND = "surround"
+
+
+def run_local(cfg: EmulatorConfig, program):
+    """Run a chunk program on one plane, answering its requests from the
+    plane itself; returns the program's result."""
+    answer = None
+    while True:
+        try:
+            request = program.send(answer)
+        except StopIteration as stop:
+            return stop.value
+        answer = request[1] if request[0] == MAX else _update_csdvs(cfg, *request[1:])
+
+
+def _logical_shape(cfg: EmulatorConfig, shape) -> Tuple[int, int]:
+    """The pixel plane's shape without its pad rows (EmulatorConfig.pad_rows)."""
+    return (shape[0] - cfg.pad_rows, shape[1])
+
+
+def _pad_plane(cfg: EmulatorConfig, x: torch.Tensor, value: float = 0.0) -> torch.Tensor:
+    """Append cfg.pad_rows rows of `value` to the second-to-last axis."""
+    if cfg.pad_rows == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, 0, cfg.pad_rows), value=value)
+
+
+def _slice_logical(cfg: EmulatorConfig, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Drop the pad rows (the inverse of `_pad_plane`)."""
+    if cfg.pad_rows == 0 or x is None:
+        return x
+    return x[..., : x.shape[-2] - cfg.pad_rows, :]
 
 
 def _csdvs_taus(cfg: EmulatorConfig) -> Tuple[float, float]:
@@ -206,12 +257,14 @@ def _emit(
     """Quantize one frame's ``diff`` into events, pass them through the
     refractory filter and move the memorized base by the emitted events.
 
-    Returns (final_pos, final_neg, i0, stride, K, new_mem, new_base); the
-    base update is one float32 multiply-add, as XLA contracts it.
+    A program step: K, the frame's largest count over the whole plane, is
+    a MAX request.  Returns (final_pos, final_neg, i0, stride, K, new_mem,
+    new_base); the base update is one float32 multiply-add, as XLA
+    contracts it.
     """
     pos_evts, neg_evts = compute_event_map(diff, params.pos_thres, params.neg_thres)
     count = pos_evts + neg_evts  # disjoint per pixel (diff has one sign)
-    K = count.max()
+    K = yield (MAX, count.max())
     ts_step = torch.maximum(dt, scalar(1e-12, dt)) / torch.clamp(K, min=1).to(torch.float32)
     if cfg.refractory_period_s > 0:
         n_emit, i0, stride, mem = refractory_filter(
@@ -231,15 +284,21 @@ def draw_chunk_noise(
     cfg: EmulatorConfig, n_frames: int, shape, generator: torch.Generator,
     device: torch.device,
 ) -> Draws:
-    """All random numbers one chunk of `n_frames` frames consumes."""
-    full = (n_frames, *shape)
+    """All random numbers one chunk of `n_frames` frames of `shape`
+    consumes.  They are drawn at the logical shape (without cfg.pad_rows),
+    so a padded run draws what an unpadded one draws, and padded with inert
+    values: leak and photoreceptor normals with 0, where the noise rates
+    are 0 anyway, and shot uniforms with 0.5, which fires neither side of
+    a pad pixel's shot noise (ON needs u > 1 - p, OFF u < p, and there p
+    is the frame's shot factor over the pad's threshold of 1e9)."""
+    full = (n_frames, *_logical_shape(cfg, shape))
 
     def normal():
-        return torch.randn(full, generator=generator, device=device)
+        return _pad_plane(cfg, torch.randn(full, generator=generator, device=device))
 
     return {
         "leak": normal() if cfg.leak_rate_hz > 0 else None,
-        "shot": torch.rand(full, generator=generator, device=device)
+        "shot": _pad_plane(cfg, torch.rand(full, generator=generator, device=device), 0.5)
         if cfg.simple_shot_noise else None,
         "photoreceptor": normal() if cfg.photoreceptor_noise else None,
     }
@@ -278,6 +337,22 @@ def emulator_step(
     probe's 9 values when cfg.probe is set and the `states` frames named
     in cfg.emit_states.
     """
+    return run_local(cfg, step_program(cfg, params, state, new_frame, t_frame, draws))
+
+
+def step_program(
+    cfg: EmulatorConfig,
+    params: EmulatorParams,
+    state: EmulatorState,
+    new_frame: torch.Tensor,
+    t_frame: torch.Tensor,
+    draws: Draws,
+    row0: int = 0,
+):
+    """`emulator_step` as a program (see the module note) on rows
+    [row0, row0 + h) of the plane: the surround is a SURROUND request and
+    K a MAX request.  Only the rows that hold the probe's pixel record it.
+    """
     delta_time = t_frame - state.t_prev
     new_frame = new_frame.to(torch.float32)
     log_new = new_frame if cfg.hdr else lin_log(new_frame)
@@ -291,7 +366,7 @@ def emulator_step(
 
     cs_surround = state.cs_surround_frame
     if cfg.csdvs_enabled:
-        cs_surround = _update_csdvs(cfg, lp, cs_surround, delta_time)
+        cs_surround = yield (SURROUND, lp, cs_surround, delta_time)
 
     hp, lp_prev = state.scidvs_highpass, state.scidvs_previous_photo
     if cfg.scidvs:
@@ -312,7 +387,7 @@ def emulator_step(
     else:
         diff = photoreceptor + pr_noise - base
 
-    final_pos, final_neg, i0, stride, K, new_mem, base = _emit(
+    final_pos, final_neg, i0, stride, K, new_mem, base = yield from _emit(
         cfg, params, diff, base, state.timestamp_mem, delta_time, state.t_prev
     )
     out: Dict[str, torch.Tensor] = {}
@@ -331,8 +406,8 @@ def emulator_step(
         num_on = num_on + shot_on.sum()
         num_off = num_off + shot_off.sum()
 
-    if cfg.probe is not None:
-        px, py = cfg.probe  # (x, y)
+    if cfg.probe is not None and 0 <= cfg.probe[1] - row0 < new_frame.shape[0]:
+        px, py = cfg.probe[0], cfg.probe[1] - row0  # (x, y) in these rows
         out["probe"] = torch.stack([
             new_frame[py, px],
             base[py, px],  # after this frame's update
@@ -400,13 +475,14 @@ def _stack_outs(steps):
     return outs
 
 
-def _emulate_chunk_steps(cfg, params, state, frames, times, draws):
-    """The per-frame path: `emulator_step` over each frame of the chunk,
-    frame f taking frame f of the chunk's draws."""
+def _chunk_steps(cfg, params, state, frames, times, draws, row0):
+    """The per-frame path as a program: `step_program` over each frame of
+    the chunk, frame f taking frame f of the chunk's draws."""
     steps = []
     for f in range(frames.shape[0]):
         frame_draws = {k: (None if v is None else v[f]) for k, v in draws.items()}
-        state, out = emulator_step(cfg, params, state, frames[f], times[f], frame_draws)
+        state, out = yield from step_program(
+            cfg, params, state, frames[f], times[f], frame_draws, row0)
         steps.append(out)
     return state, _stack_outs(steps)
 
@@ -424,7 +500,8 @@ def _scidvs_core(
 ):
     """The fast path's sequential core for the SciDVS pixel, a loop over
     the frames (the JAX package's XLA scan body, core.py:931-973; SciDVS
-    never reaches K1 or K2 there, nor here).
+    never reaches K1 or K2 there, nor here), as a program: each frame's K
+    is a MAX request.
 
     Returns (new_base, new_mem, highpass, previous photoreceptor, signed
     counts i16[F,H,W], i0 i16[F,H,W], stride i32[F], K i32[F]).
@@ -445,7 +522,7 @@ def _scidvs_core(
         if pr_noise is not None:
             diff = diff + pr_noise[f]
         diff = diff - base
-        final_pos, final_neg, i0, stride, K, mem, base = _emit(
+        final_pos, final_neg, i0, stride, K, mem, base = yield from _emit(
             cfg, params, diff, base, mem, dts[f], t_prevs[f]
         )
         if shot_any is not None:
@@ -473,10 +550,29 @@ def emulate_chunk_apply(
     CSDVS, the probe and the state frames take the per-frame path
     (`emulator_step`), everything else the fast path.
     """
+    return run_local(cfg, chunk_program(cfg, params, state, frames, times, draws))
+
+
+def chunk_program(
+    cfg: EmulatorConfig,
+    params: EmulatorParams,
+    state: EmulatorState,
+    frames: torch.Tensor,
+    times: torch.Tensor,
+    draws: Draws,
+    row0: int = 0,
+    split: bool = False,
+):
+    """`emulate_chunk_apply` as a program (see the module note) on rows
+    [row0, row0 + h) of the plane.  With `split` the refractory core runs
+    as K1's two halves, `refractory_count` and `refractory_apply`, with
+    each frame's K a MAX request between them (what pixel strips run);
+    without it, as K1 itself, whose K spans only the program's own rows.
+    """
     frames = frames.to(torch.float32)
     times = times.to(torch.float32)
     if cfg.per_frame:
-        return _emulate_chunk_steps(cfg, params, state, frames, times, draws)
+        return (yield from _chunk_steps(cfg, params, state, frames, times, draws, row0))
     dts = torch.diff(times, prepend=state.t_prev.reshape(1))
     t_prevs = times - dts
     dts3 = dts[:, None, None]
@@ -526,7 +622,7 @@ def emulate_chunk_apply(
     base = state.base_log_frame.contiguous()
     scidvs_state = {}
     if cfg.scidvs:
-        new_base, new_mem, hp, lp_prev, signed16, i0_16, stride, K = _scidvs_core(
+        new_base, new_mem, hp, lp_prev, signed16, i0_16, stride, K = yield from _scidvs_core(
             cfg, params, state, lp, pr_noise, leak_delta, shot_any, dts, t_prevs
         )
         scidvs_state = dict(scidvs_highpass=hp, scidvs_previous_photo=lp_prev)
@@ -534,15 +630,17 @@ def emulate_chunk_apply(
         # the JAX package's refractory-free branch (core.py:832-866)
         new_base, signed16 = scan(lp_eff, leak_delta, shot_any, pos_th, neg_th, base)
         new_mem = state.timestamp_mem
-        K = signed16.to(torch.int32).abs().amax(dim=(1, 2))
+        K = yield (MAX, signed16.to(torch.int32).abs().amax(dim=(1, 2)))
         i0_16 = torch.zeros_like(signed16)
         stride = torch.ones_like(K)
     else:
-        new_base, new_mem, signed16, i0_16, K = refractory_scan(
-            lp_eff, leak_delta, shot_any, pos_th, neg_th, base,
-            state.timestamp_mem.contiguous(), dts.contiguous(),
-            t_prevs.contiguous(), float(cfg.refractory_period_s),
-        )
+        args = (lp_eff, leak_delta, shot_any, pos_th, neg_th, base,
+                state.timestamp_mem.contiguous(), dts.contiguous(),
+                t_prevs.contiguous(), float(cfg.refractory_period_s))
+        if split:
+            new_base, new_mem, signed16, i0_16, K = yield from _refractory_split(*args)
+        else:
+            new_base, new_mem, signed16, i0_16, K = refractory_scan(*args)
         # per-frame stride from K, the formula of the refractory filter
         R = scalar(cfg.refractory_period_s, frames)
         ts_step = torch.maximum(dts, scalar(1e-12, dts)) / torch.clamp(K, min=1).to(torch.float32)
@@ -568,6 +666,27 @@ def emulate_chunk_apply(
         **scidvs_state,
     )
     return new_state, outs
+
+
+def _refractory_split(lp, leak_delta, shot_any, pos_thres, neg_thres, base,
+                      timestamp_mem, dts, t_prevs, refractory_period_s):
+    """K1 as its two halves, with each frame's K a MAX request: the count
+    of frame 0, then per frame the apply (fused with the next frame's
+    count).  Returns what `refractory_scan` returns."""
+    F = lp.shape[0]
+    base = base.clone()
+    mem = timestamp_mem.clone()
+    counts = torch.empty(lp.shape, dtype=torch.int16, device=lp.device)
+    i0 = torch.empty_like(counts)
+    kmax = torch.zeros(F, dtype=torch.int32, device=lp.device)
+    refractory_count(lp, leak_delta, pos_thres, neg_thres, base, kmax, 0)
+    Ks = []
+    for f in range(F):
+        K = yield (MAX, kmax[f])
+        refractory_apply(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem, dts,
+                         t_prevs, refractory_period_s, K, f, counts, i0, kmax)
+        Ks.append(K)
+    return base, mem, counts, i0, torch.stack(Ks)
 
 
 def emulate_chunk(
@@ -648,6 +767,11 @@ def emulate_and_compact_impl(
     "probe": f32[F,9] when cfg.probe is set}; the state frames stay in
     outs["states"]."""
     state, outs = emulate_chunk_apply(cfg, params, state, frames, times, draws)
+    return state, outs, pack_chunk(cfg, outs, capacity)
+
+
+def pack_chunk(cfg: EmulatorConfig, outs: Dict[str, torch.Tensor], capacity: int) -> Dict:
+    """A chunk's outputs packed for the host (see `emulate_and_compact_impl`)."""
     sparse = compact_chunk(cfg, outs, capacity)
     n_occ = count_occupied(cfg, outs)
     scalars = torch.cat(
@@ -664,7 +788,7 @@ def emulate_and_compact_impl(
     packed = {"scalars": scalars, "sparse": sparse}
     if cfg.probe is not None:
         packed["probe"] = outs["probe"]
-    return state, outs, packed
+    return packed
 
 
 def unpack_scalars(scalars) -> Dict:

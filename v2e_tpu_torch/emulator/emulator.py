@@ -12,7 +12,9 @@ frames, DDD-style), the probe's record and the state videos
 (`collect_finalize`).  `save_state` / `load_state` checkpoint a
 conversion.  The JAX package's `prewarm_collect` compiles XLA slice
 programs ahead of time; PyTorch runs eagerly, so it has no counterpart.
-The multi-device modes are not ported yet.
+With a mesh (parallel/) a chunk runs in pixel strips
+(`parallel_mode="pixel"`, parallel/mesh.py) or in time segments
+(`"segment"`, parallel/convert.py).
 """
 from __future__ import annotations
 
@@ -29,9 +31,11 @@ import torch
 from v2e_tpu_torch.device import resolve_device
 from v2e_tpu_torch.emulator.config import EmulatorConfig
 from v2e_tpu_torch.emulator.core import (
+    _slice_logical,
     compact_chunk,
     draw_chunk_noise,
     emulate_and_compact_impl,
+    pack_chunk,
     unpack_scalars,
 )
 from v2e_tpu_torch.emulator.events import materialize_events_sparse
@@ -120,13 +124,28 @@ class EventEmulator:
         show_dvs_model_state: Optional[List[str]] = None,
         save_dvs_model_state: bool = False,
         record_single_pixel_states: Optional[Tuple[int, int]] = None,
+        mesh=None,
+        parallel_mode: str = "pixel",
+        segment_warmup: int = 8,
+        n_segments: Optional[int] = None,
+        pad_rows: int = 0,
     ):
         """`record_single_pixel_states` (x, y) records that pixel's states
         each frame into pixel-states.dat; `show_dvs_model_state` names the
         state frames each frame computes (["all"] for every one of
         MODEL_STATES), which `save_dvs_model_state` writes to an AVI each
-        (there is no display window)."""
-        self.device = resolve_device(device)
+        (there is no display window).
+
+        `mesh` (parallel.mesh.Mesh) runs each chunk over several devices,
+        the state kept on the mesh's first device (which `device` then is):
+        parallel_mode "pixel" splits the image rows into strips over the
+        mesh's 'spatial' axis, bit-exact against one device, with
+        `pad_rows` inert rows making H divide; "segment" splits the chunk
+        into `n_segments` (default: the mesh's size) time segments over a
+        1-D 'seg' mesh, each seeded with `segment_warmup` overlap frames
+        whose events are dropped, events at a seam shifting by at most one
+        threshold crossing (parallel/convert.py)."""
+        self.device = mesh.lead if mesh is not None else resolve_device(device)
         if record_single_pixel_states is not None:
             if (
                 not isinstance(record_single_pixel_states, tuple)
@@ -153,7 +172,28 @@ class EventEmulator:
             photoreceptor_noise=photoreceptor_noise, hdr=hdr, seed=seed,
             scidvs=scidvs, cs_lambda_pixels=cs_lambda_pixels, cs_tau_p_ms=cs_tau_p_ms,
             probe=record_single_pixel_states, emit_states=emit_states,
+            pad_rows=int(pad_rows),
         )
+        if parallel_mode not in ("pixel", "segment"):
+            raise ValueError(f"parallel_mode {parallel_mode!r} must be 'pixel' or 'segment'")
+        if pad_rows and parallel_mode == "segment":
+            raise ValueError("pad_rows applies to pixel strips only (segment mode splits "
+                             "time, not rows)")
+        if mesh is not None and parallel_mode == "segment":
+            if "seg" not in mesh.axis_names:
+                raise ValueError("segment-parallel mode needs a 1-D mesh with axis 'seg' "
+                                 "(see v2e_tpu_torch.parallel.convert.make_segment_mesh)")
+            if record_single_pixel_states is not None or emit_states:
+                raise ValueError("segment-parallel mode does not support the single-pixel "
+                                 "probe or model-state emission (use parallel_mode='pixel')")
+        if mesh is not None and parallel_mode == "pixel" and "spatial" not in mesh.axis_names:
+            raise ValueError("pixel strips need a mesh with axis 'spatial' "
+                             "(see v2e_tpu_torch.parallel.make_mesh)")
+        self.mesh = mesh
+        self.parallel_mode = parallel_mode
+        self.segment_warmup = int(segment_warmup)
+        self.n_segments = n_segments
+        self._tail = None  # segment mode: the last warmup+1 frames, times and warmup draws
         self.cfg.validate()
         self.label_signal_noise = label_signal_noise
         self.shuffle = shuffle_events_within_iteration
@@ -239,7 +279,7 @@ class EventEmulator:
         self.cfg = presets[model](
             hdr=cfg.hdr, seed=cfg.seed, scidvs=cfg.scidvs,
             cs_lambda_pixels=cfg.cs_lambda_pixels, cs_tau_p_ms=cfg.cs_tau_p_ms,
-            probe=cfg.probe, emit_states=cfg.emit_states,
+            probe=cfg.probe, emit_states=cfg.emit_states, pad_rows=cfg.pad_rows,
         )
 
     def reset(self) -> None:
@@ -252,6 +292,7 @@ class EventEmulator:
         self.num_events_total = 0
         self.num_events_on = 0
         self.num_events_off = 0
+        self._tail = None
 
     # ------------------------------------------------------------------
     def _initialize(self, first_frame: torch.Tensor, t0: float) -> None:
@@ -338,17 +379,62 @@ class EventEmulator:
         rel_times = torch.as_tensor(
             (times[start:] - t_origin).astype(np.float32), device=self.device
         )
-        draws = draw_chunk_noise(
-            self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device
-        )
-        self.state, outs, packed = emulate_and_compact_impl(
-            self.cfg, self.params, self.state, chunk, rel_times, self._capacity, draws
-        )
+        if self.mesh is not None and self.parallel_mode == "segment":
+            outs, packed = self._submit_segments(frames, chunk, times, start, t_origin, rel_times)
+        else:
+            if self.cfg.pad_rows:
+                # inert rows so that H splits evenly (EmulatorConfig.pad_rows)
+                chunk = torch.nn.functional.pad(chunk, (0, 0, 0, self.cfg.pad_rows))
+            draws = draw_chunk_noise(
+                self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device
+            )
+            if self.mesh is not None:
+                from v2e_tpu_torch.parallel.mesh import emulate_chunk_sharded
+
+                self.state, outs = emulate_chunk_sharded(
+                    self.cfg, self.mesh, self.params, self.state, chunk, rel_times, draws=draws)
+                packed = pack_chunk(self.cfg, outs, self._capacity)
+            else:
+                self.state, outs, packed = emulate_and_compact_impl(
+                    self.cfg, self.params, self.state, chunk, rel_times, self._capacity, draws
+                )
         self._advance(times[start:], t_origin)
         handle = self._handle(outs, packed, t_origin, times[start:])
         if self.dvs_h5 is not None:
-            handle["frames_for_h5"] = chunk
+            handle["frames_for_h5"] = frames[start:]
         return handle
+
+    def _submit_segments(self, frames, chunk, times, start, t_origin, rel_times):
+        """A chunk in time segments (parallel/convert.py), with the tail of
+        the last warmup+1 frames, their times and the last warmup frames
+        of draws rolled on to the next chunk."""
+        from v2e_tpu_torch.parallel.convert import emulate_and_compact_segmented
+
+        W = self.segment_warmup
+        draws = draw_chunk_noise(
+            self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device)
+        if self._tail is None:
+            # first chunk: the first frame replayed at its own time (dt = 0
+            # replays change nothing, whatever their draws)
+            self._tail = (
+                frames[0].to(torch.float32).expand(W + 1, *frames.shape[1:]),
+                np.full(W + 1, float(times[0])),
+                {k: None if v is None else torch.zeros_like(v[:1]).expand(W, *v.shape[1:])
+                 for k, v in draws.items()},
+            )
+        tail_frames, tail_times, tail_draws = self._tail
+        S = self.n_segments or self.mesh.size
+        tail_rel = torch.as_tensor((tail_times - t_origin).astype(np.float32), device=self.device)
+        self.state, outs, packed = emulate_and_compact_segmented(
+            self.cfg, self.params, self.state, chunk, rel_times, tail_frames, tail_rel, S, W,
+            self._capacity, self.mesh, draws, tail_draws)
+        self._tail = (
+            torch.cat([tail_frames, chunk.to(torch.float32)])[-(W + 1):],
+            np.concatenate([tail_times, times[start:]])[-(W + 1):],
+            {k: None if v is None else torch.cat([tail_draws[k], v])[-W:] if W else v[:0]
+             for k, v in draws.items()},
+        )
+        return outs, packed
 
     def submit_batch_fused(
         self, fused_fn, statics, flow_net, interp_net, frames, times
@@ -361,6 +447,8 @@ class EventEmulator:
                 "submit_batch_fused needs an initialized emulator (feed the "
                 "first chunk through submit_batch)"
             )
+        if self.mesh is not None or self.cfg.pad_rows:
+            raise RuntimeError("fused submission is single-device only")
         times = self._check_times(times)
         if self._pr_noise_pending:
             self._calibrate_photoreceptor_noise(float(times[0]) - self.t_previous)
@@ -499,6 +587,7 @@ class EventEmulator:
         from v2e_tpu_torch.utils.video import video_writer
 
         for name, stack in states.items():
+            stack = _slice_logical(self.cfg, stack)
             lo, hi = MODEL_STATES[name]
             if name not in self._video_writers:
                 h, w = stack.shape[1:]
@@ -518,6 +607,8 @@ class EventEmulator:
         (the generator's state takes the place of its PRNG key)."""
         if self.state is None:
             raise RuntimeError("no state to save (no frames processed yet)")
+        if self.mesh is not None:
+            raise RuntimeError("save_state runs without a mesh only")
         blobs = {}
         for name in ("params", "state"):
             obj = getattr(self, name)
@@ -543,8 +634,11 @@ class EventEmulator:
         configuration, so the noise stream is the port's own."""
         if self.state is not None:
             raise RuntimeError("load_state requires a fresh emulator")
+        if self.mesh is not None:
+            raise RuntimeError("load_state runs without a mesh only")
         npz = np.load(path)
         H, W = next(npz[k].shape for k in npz.files if k.endswith("pos_thres"))
+        H -= self.cfg.pad_rows
         # the configuration's fields, from a throwaway initialization
         params, state = init_state(
             self.cfg, torch.zeros((H, W), device=self.device), 0.0,

@@ -61,7 +61,8 @@ def init_state(
     the SciDVS lognormal tau map, refractory memory primed to ``t0 - R`` so
     the first events pass, and the memorized base set to the first log
     frame; for CSDVS the surround starts equal to the photoreceptor, so the
-    center-minus-surround base starts at zero."""
+    center-minus-surround base starts at zero.  With `cfg.pad_rows` the
+    plane gains that many inert rows below the first frame's."""
     dev = first_frame.device
     shape = tuple(first_frame.shape)
     f32 = torch.float32
@@ -89,6 +90,19 @@ def init_state(
         scidvs_tau = cfg.scidvs_tau_s * torch.exp(cfg.scidvs_tau_cov * normal())
     elif cfg.scidvs:
         scidvs_tau = torch.full(shape, cfg.scidvs_tau_s, dtype=f32, device=dev)
+
+    if cfg.pad_rows:
+        # inert pad rows (EmulatorConfig.pad_rows): the draws above were made
+        # at the logical shape; pad pixels never emit
+        def pad(x, value=0.0):
+            return torch.nn.functional.pad(x, (0, 0, 0, cfg.pad_rows), value=value)
+
+        pos, neg = pad(pos, 1e9), pad(neg, 1e9)
+        rate = pad(rate)
+        lp = pad(lp)
+        if scidvs_tau is not None:
+            scidvs_tau = pad(scidvs_tau, 1.0)
+        shape = (shape[0] + cfg.pad_rows, shape[1])
 
     params = EmulatorParams(
         pos_thres=pos,

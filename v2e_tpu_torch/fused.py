@@ -102,6 +102,15 @@ class FusedConverter:
         self.n_fused = 0  # chunks submitted each way
         self.n_staged = 0
 
+    @staticmethod
+    def usable(slomo: SuperSloMo, emulator, writes_slomo_video: bool) -> bool:
+        """Whether fused chunks can serve this conversion: one device (no
+        mesh, no pad rows; a fused chunk runs the emulator on one plane),
+        and nothing on the host that needs the interpolated frames (the
+        slomo video, the HDF5 sink's frames)."""
+        return (emulator.mesh is None and not emulator.cfg.pad_rows
+                and emulator.dvs_h5 is None and not writes_slomo_video)
+
     def submit_window(self, src_frames, pair_index: int, src_frame_interval: float):
         """Submit one window of source frames [B+1,H,W] whose first pair is
         global pair `pair_index`; the interpolated times follow from the

@@ -108,11 +108,13 @@ def run_interpolated_pipeline(
                 output_height, output_width, frame_rate=args.avi_frame_rate,
             )
 
-    # the fused chunk keeps the interpolated frames on the device, so it
-    # runs only when no host consumer (the slomo video, the SloMo cache,
-    # the HDF5 sink's frames) needs them
+    # the fused chunk keeps the interpolated frames on the device and runs
+    # the emulator on one device, so it runs only without a mesh and when
+    # no host consumer (the slomo video, the SloMo cache, the HDF5 sink's
+    # frames) needs them
     fused = (FusedConverter(slomo, emulator)
-             if slomo_writer is None and cache_writer is None and emulator.dvs_h5 is None
+             if cache_writer is None
+             and FusedConverter.usable(slomo, emulator, slomo_writer is not None)
              else None)
     if fused is not None:
         logger.info("using fused conversion chunks")

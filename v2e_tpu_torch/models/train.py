@@ -1,5 +1,6 @@
 """SuperSloMo training (port of v2e_tpu/models/train.py): the Super-SloMo
-losses and one optimizer step on one device.
+losses and one optimizer step, on one device or data-parallel over the
+ranks of a `torch.distributed` process group.
 
 Losses follow the Super-SloMo paper (Jiang et al., CVPR 2018), as the JAX
 package computes them: reconstruction L1, warping L1 and the flows' total
@@ -9,16 +10,28 @@ its VJP kernel backward on the card).  Adam is `torch.optim.Adam` with
 optax.adam's defaults (betas 0.9 and 0.999, eps 1e-8).
 
 On the card cuDNN runs float32 convolutions in TF32 unless
-`torch.backends.cudnn.allow_tf32` is off; the caller chooses.  Training on
-several devices (the JAX package's `shard_batch`, `replicate_state`) is
-ROADMAP item 6.
+`torch.backends.cudnn.allow_tf32` is off; the caller chooses.
+
+Several devices: `replicate_state` wraps both UNets in
+DistributedDataParallel over the default process group, one process per
+rank, and `shard_batch` gives each rank its equal share of the global
+batch.  DDP averages the ranks' gradients, which equals the gradient of
+the global batch's mean loss when the shares are equal, the JAX package's
+loss; so `shard_batch` refuses a batch that does not divide.  The JAX
+package also splits the images' rows over a second mesh axis, which
+XLA's partitioner does for free; here that would need a halo exchange in
+every convolution, so the port splits the batch only (ROADMAP, "No
+counterpart, by design").
 """
 from __future__ import annotations
 
+import socket
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from v2e_tpu_torch.device import resolve_device
 from v2e_tpu_torch.models.backwarp import backwarp_grad
@@ -39,10 +52,72 @@ ADAM_EPS = 1e-8
 
 @dataclass
 class TrainState:
-    flow_net: UNet
+    flow_net: UNet  # or a DistributedDataParallel of one, after replicate_state
     interp_net: UNet
     optimizer: torch.optim.Adam
     step: int = 0
+    replicated: bool = False
+
+
+def unwrap(net: torch.nn.Module) -> UNet:
+    """The UNet inside a DistributedDataParallel (or the UNet itself)."""
+    return net.module if isinstance(net, DistributedDataParallel) else net
+
+
+def rank_device(device, rank: int):
+    """The device of `rank`: card rank mod the visible cards for "cuda",
+    else `device` itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
+def init_ranks(device, rank: int, world: int, init_method: str):
+    """Join the process group as `rank` of `world` on `device`'s rank
+    device (`rank_device`): NCCL when every rank has a card of its own,
+    gloo when ranks share a device (NCCL refuses two ranks on one card).
+    Returns the rank's device."""
+    dev = rank_device(device, rank)
+    own_cards = (dev.type == "cuda" and torch.device(device).index is None
+                 and world <= torch.cuda.device_count())
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if own_cards else "gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    return dev
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def replicate_state(state: TrainState) -> TrainState:
+    """The state replicated over the ranks of the default process group:
+    both UNets wrapped in DistributedDataParallel, which broadcasts rank
+    0's weights at once and averages the ranks' gradients in every
+    backward.  The optimizer keeps its parameters (DDP wraps the same
+    tensors).  Each rank then takes its share of every batch
+    (`shard_batch`)."""
+    state.flow_net = DistributedDataParallel(state.flow_net)
+    state.interp_net = DistributedDataParallel(state.interp_net)
+    state.replicated = True
+    return state
+
+
+def shard_batch(batch: Dict) -> Dict:
+    """This rank's equal share of a global batch (arrays or tensors with the
+    batch first), by rank order; raises when the batch does not divide by
+    the default process group's size."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = len(next(iter(batch.values())))
+    if n % world:
+        raise ValueError(f"a batch of {n} does not split evenly over {world} ranks")
+    share = n // world
+    return {k: v[rank * share: (rank + 1) * share] for k, v in batch.items()}
 
 
 def create_train_state(
@@ -131,7 +206,9 @@ def batch_to(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
 def make_train_step():
     """The training step: `train_step(state, batch) -> (state, metrics)`,
     one Adam update of both UNets on the batch's loss.  The state is
-    updated in place; the metrics are detached 0-d tensors on the device."""
+    updated in place; the metrics are detached 0-d tensors on the device,
+    averaged over the ranks when the state is replicated (the global
+    batch's, as each rank's share is equal)."""
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         b = batch_to(batch, next(state.flow_net.parameters()).device)
@@ -142,6 +219,12 @@ def make_train_step():
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return state, {k: m.detach() for k, m in metrics.items()}
+        metrics = {k: m.detach() for k, m in metrics.items()}
+        if state.replicated:
+            values = torch.stack(list(metrics.values()))
+            dist.all_reduce(values)
+            values /= dist.get_world_size()
+            metrics = dict(zip(metrics, values))
+        return state, metrics
 
     return train_step

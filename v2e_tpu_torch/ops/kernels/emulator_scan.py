@@ -14,6 +14,22 @@ memory bytes, 13 B per pixel per frame (lp and leak f32, shot u8, counts
 and i0 i16), and at the CLI's planes by the F grid barriers.  The TPU sent
 planes above 256K pixels to the XLA scan; this kernel has no size limit.
 
+K1's two halves, `refractory_count` and `refractory_apply`, compute what K1
+computes with its per-frame reduction of K lifted out of the kernel, for
+pixel strips on several devices (parallel/mesh.py): a grid barrier cannot
+span cards.  `refractory_count` is K1's step 1 for one frame (leak, counts,
+the strip's largest count, by atomicMax), `refractory_apply` its step 3
+(the filter constants from K, the filter, base update, shot reset, counts
+and i0 stored), fused with the next frame's step 1, so a chunk of F frames
+takes F + 1 launches per strip.  Each is an ordinary (not cooperative)
+launch, a thread per pixel over a grid-stride loop, and rounds every
+operation as K1 does, so strips equal K1 on the whole plane bit for bit.
+Both update their state in place.  Bound by memory bytes: the count reads
+lp, leak, base and the thresholds and writes base, the apply reads lp,
+shot, base, memory and the thresholds and writes base, memory, counts and
+i0 (57 B per pixel-frame in all, against K1's 13 B), and at the CLI's
+planes by the 2 launches and the host's cross-strip reduction per frame.
+
 K2 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_pallas, the
 core of every configuration with R <= 0.  `scan` launches its kernel (same
 source) for CUDA tensors and runs `scan_plain` for CPU tensors.  One launch
@@ -210,6 +226,136 @@ _GRIDS = {}
 # call's ([F,H,W], (blocks, threads, pixels per thread in registers))
 refractory_scan.launches = 0
 refractory_scan.last_call = None
+
+
+def refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, kmax, f) -> None:
+    """K1's step 1 for frame f, in place: base -= leak[f]; kmax[f] = the
+    largest count of the plane's pixels."""
+    if leak_delta is not None:
+        base.sub_(leak_delta[f])
+    pos, neg = compute_event_map(lp[f] - base, pos_thres, neg_thres)
+    kmax[f] = (pos + neg).max()
+
+
+def refractory_apply_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem, dts,
+                           t_prevs, refractory_period_s, K, f, counts, i0s, kmax) -> None:
+    """K1's step 3 for frame f given the frame's K (a 0-d int32 tensor), in
+    place: the filter, base and memory updates, counts[f] and i0s[f]; then
+    step 1 of frame f + 1 when there is one (`refractory_count_plain`)."""
+    R = scalar(refractory_period_s, lp)
+    pos, neg = compute_event_map(lp[f] - base, pos_thres, neg_thres)
+    count = pos + neg
+    ts_step = torch.maximum(dts[f], scalar(1e-12, lp)) / torch.clamp(K, min=1).to(torch.float32)
+    active = R > ts_step
+    q = (mem + R - t_prevs[f]) / ts_step
+    i0 = torch.clamp(torch.floor(q), 0.0, I32_MAX_F).to(torch.int32)
+    m = torch.clamp(torch.floor(R / ts_step) + 1.0, max=I32_MAX_F).to(torch.int32)
+    has = (count > 0) & (i0 <= count - 1)
+    n_emit = torch.where(
+        has, torch.div(count - 1 - i0, torch.clamp(m, min=1), rounding_mode="floor") + 1, 0)
+    i_last = i0 + (n_emit - 1) * m
+    t_last = fma_f32(i_last.to(torch.float32) + 1.0, ts_step, t_prevs[f])
+    new_mem = torch.where(n_emit > 0, t_last, mem)
+    n_emit = torch.where(active, n_emit, count)
+    i0 = torch.where(active & has, i0, 0)
+    mem.copy_(torch.where(active, new_mem, mem))
+    final_pos = torch.where(pos > 0, n_emit, 0)
+    final_neg = torch.where(neg > 0, n_emit, 0)
+    b = fma_f32(final_pos.to(torch.float32), pos_thres, base)
+    b = fma_f32(-final_neg.to(torch.float32), neg_thres, b)
+    if shot_any is not None:
+        b = torch.where(shot_any[f] != 0, lp[f], b)
+    base.copy_(b)
+    counts[f] = (final_pos - final_neg).to(torch.int16)
+    i0s[f] = i0.to(torch.int16)
+    if f + 1 < lp.shape[0]:
+        refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, kmax, f + 1)
+
+
+def _check_split(lp, leak_delta, shot_any, planes, f) -> None:
+    F, H, W = lp.shape
+    dev = lp.device
+    _check("lp", lp, torch.float32, (F, H, W), dev)
+    if leak_delta is not None:
+        _check("leak_delta", leak_delta, torch.float32, (F, H, W), dev)
+    if shot_any is not None:
+        _check("shot_any", shot_any, torch.uint8, (F, H, W), dev)
+    for name, t in planes:
+        _check(name, t, torch.float32, (H, W), dev)
+    if not 0 <= f < F:
+        raise ValueError(f"frame {f} outside the chunk's {F} frames")
+
+
+def refractory_count(lp, leak_delta, pos_thres, neg_thres, base, kmax, f: int) -> None:
+    """K1's step 1 for frame f (see the module note), in place: the kernel
+    for CUDA tensors, `refractory_count_plain` for CPU ones.
+
+    lp and leak_delta f32[F,H,W] (leak may be None); thresholds and base
+    f32[H,W]; kmax i32[F], its entry f zero before the call.
+    """
+    if not lp.is_cuda:
+        return refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, kmax, f)
+    F, H, W = lp.shape
+    _check_split(lp, leak_delta, None, (("pos_thres", pos_thres), ("neg_thres", neg_thres),
+                                        ("base", base)), f)
+    _check("kmax", kmax, torch.int32, (F,), lp.device)
+    fn = _split_fn("v2e_refractory_count", 6, 2)
+    with torch.cuda.device(lp.device):
+        err = fn(_ptr(lp), _ptr(leak_delta), _ptr(pos_thres), _ptr(neg_thres), _ptr(base),
+                 _ptr(kmax), f, H * W, torch.cuda.current_stream(lp.device).cuda_stream)
+    build.check(err, "refractory_count")
+    refractory_count.launches += 1
+
+
+def refractory_apply(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem, dts, t_prevs,
+                     refractory_period_s: float, K, f: int, counts, i0, kmax) -> None:
+    """K1's step 3 for frame f, fused with step 1 of frame f + 1 (see the
+    module note), in place: the kernel for CUDA tensors,
+    `refractory_apply_plain` for CPU ones.
+
+    K: the frame's largest count over every strip, a 0-d int32 tensor on
+    lp's device; shot_any u8[F,H,W] or None; mem f32[H,W]; dts and
+    t_prevs f32[F]; counts and i0 i16[F,H,W], frame f written; kmax i32[F],
+    entry f + 1 zero before the call.
+    """
+    if not lp.is_cuda:
+        return refractory_apply_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem,
+                                      dts, t_prevs, refractory_period_s, K, f, counts, i0, kmax)
+    F, H, W = lp.shape
+    dev = lp.device
+    _check_split(lp, leak_delta, shot_any, (("pos_thres", pos_thres), ("neg_thres", neg_thres),
+                                            ("base", base), ("mem", mem)), f)
+    for name, t, dtype, shape in (("dts", dts, torch.float32, (F,)),
+                                  ("t_prevs", t_prevs, torch.float32, (F,)),
+                                  ("K", K, torch.int32, ()), ("kmax", kmax, torch.int32, (F,)),
+                                  ("counts", counts, torch.int16, (F, H, W)),
+                                  ("i0", i0, torch.int16, (F, H, W))):
+        _check(name, t, dtype, shape, dev)
+    fn = _split_fn("v2e_refractory_apply", 13, 3, with_r=True)
+    with torch.cuda.device(dev):
+        err = fn(_ptr(lp), _ptr(leak_delta), _ptr(shot_any), _ptr(pos_thres), _ptr(neg_thres),
+                 _ptr(base), _ptr(mem), _ptr(dts), _ptr(t_prevs), _ptr(K), _ptr(kmax),
+                 _ptr(counts), _ptr(i0), f, F, H * W, float(refractory_period_s),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "refractory_apply")
+    refractory_apply.launches += 1
+
+
+@functools.cache
+def _split_fn(name: str, n_ptrs: int, n_ints: int, with_r: bool = False):
+    """The C entry point `name` of a K1 half: n_ptrs pointers, n_ints ints,
+    the refractory period (a float) for the apply, then the stream."""
+    fn = getattr(build.load("emulator_scan"), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] * with_r + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# kernel launches made by each half (refractory_apply: one per frame and
+# strip; refractory_count: one per chunk and strip)
+refractory_count.launches = 0
+refractory_apply.launches = 0
 
 
 def scan_plain(
