@@ -154,14 +154,16 @@ Phases, each printed on its own line with its seconds:
        clamp warning, and the events of the same run in process;
      `[pixel]` EventEmulator with a mesh of S strips on cuda:0 against one
        device over 4 chunks of run B's 96 frames at 346x260 (the CLI's
-       emulator defaults, seed 42): R = 0.5 ms through K1's two halves at
-       S = 2 and 3 (260 rows padded to 261), the noisy preset through K2
-       per strip at S = 2 and 3, and R = 0.5 ms at 1280x720 with S = 4;
-       events equal bit for bit, the halves' and K2's launches counted,
-       any plain scan refused; ms per chunk beside one device's;
-     `[k1-halves]` the two halves over 3 strips at run B's shape against
-       their plain versions and K1, bit for bit; each timed on a strip
-       beside its plain version and bound, the split chunk beside K1;
+       emulator defaults, seed 42): R = 0.5 ms through K1 on strips (one
+       launch per strip and chunk) at S = 2 and 3 (260 rows padded to
+       261), the noisy preset through K2 per strip at S = 2 and 3, and R =
+       0.5 ms at 1280x720 with S = 4; events equal bit for bit, the strips'
+       kernel's and K2's launches counted, any plain scan refused; ms per
+       chunk beside one device's;
+     `[k1-strips]` K1 on 3 strips at run B's shape against its plain
+       version and K1, bit for bit; the split chunk timed beside K1 and its
+       bound, the kernels' device time at 3 strips and at 1, and the per-
+       frame cost of the exchange's hop through system memory;
      `[segment]` EventEmulator in 4 time segments (warm-up 8) over 3
        chunks of run A's 768 frames: K1 once per segment, each pixel's
        signed count within one crossing per seam of the continuous run's;
@@ -178,7 +180,7 @@ one of the training phase's numbers, one of the parallel phases' numbers
 numbers (K1's launches in run F and K2's in run H beside those of the
 fused chunk and run B; K3's launches and error at the training shape;
 K3's VJP as its own entry, which K3's names under "vjp", with the
-training run's launches; K1's halves as their own entries, with the
+training run's launches; K1 on strips as its own entry, with the
 launches of `[pixel]`'s S = 3 run at 346x260), the nvidia-smi line again,
 and last {"ok": true, "device": {...}}.  Exits non-zero, with no result,
 when CUDA is unavailable, a kernel does not build or disagrees, or any
@@ -2278,7 +2280,7 @@ def phase_small_reference(torch, np, devices=("cuda", "cpu")):
         f"(max diff {diff} DN), events {ng} vs {nc}")
 
 
-# ---- several devices: pixel strips, K1's halves, time segments, DDP ----
+# ---- several devices: pixel strips, K1 on strips, time segments, DDP ----
 
 PIXEL_U = RUN_B_U
 PIXEL_F = 8 * RUN_B_U  # run B's chunk: 8 source pairs at U = 12
@@ -2292,7 +2294,7 @@ DDP_RANKS, DDP_STEPS = 2, 5
 DDP_SHAPE = (TRAIN_N, TRAIN_H, TRAIN_W, 32)
 PIXEL_LARGE = (720, 1280, 4)  # [pixel]'s large plane and its strips
 PLAIN_SCANS = ("refractory_count_plain", "refractory_apply_plain", "refractory_scan_plain",
-               "scan_plain")
+               "refractory_scan_strips_plain", "scan_plain")
 
 
 def scene(torch, dev, n, h, w, u):
@@ -2329,8 +2331,8 @@ def run_stream(torch, np, em, frames, times, chunk, n_chunks):
 
 
 class PlainScansRefused:
-    """Within the block, any plain version of K1, its halves or K2 raises:
-    the main path must reach the kernels."""
+    """Within the block, any plain version of K1, K1 on strips or K2
+    raises: the main path must reach the kernels."""
 
     def __enter__(self):
         from v2e_tpu_torch.ops.kernels import emulator_scan as es
@@ -2351,7 +2353,7 @@ def phase_pixel(torch, np, dev):
     """`[pixel]`: EventEmulator with a mesh of S strips on the card against
     the single-device EventEmulator on the same frames (4 chunks of run B's
     96 frames at 1/360 s, seed 42, the CLI's emulator defaults): with R =
-    0.5 ms (K1's halves) at S = 2 and 3 (3 pads 260 rows to 261), with the
+    0.5 ms (K1 on strips) at S = 2 and 3 (3 pads 260 rows to 261), with the
     noisy preset (K2 per strip) at S = 2 and 3, and at 1280x720 with S = 4.
     Events equal bit for bit; launches as the strips need them and no
     plain version.  Returns the S = 3 refractory run's launches."""
@@ -2359,7 +2361,7 @@ def phase_pixel(torch, np, dev):
     from v2e_tpu_torch.ops.kernels import emulator_scan as es
     from v2e_tpu_torch.parallel.mesh import Mesh
 
-    counters = {"refractory_count": es.refractory_count, "refractory_apply": es.refractory_apply,
+    counters = {"refractory_scan_strips": es.refractory_scan_strips,
                 "refractory_scan": es.refractory_scan, "scan": es.scan}
     cases = [(None, H, W, 2), (None, H, W, 3), ("noisy", H, W, 2), ("noisy", H, W, 3),
              (None, *PIXEL_LARGE)]
@@ -2388,10 +2390,9 @@ def phase_pixel(torch, np, dev):
             raise AssertionError(f"[pixel] {tag}: {len(ev2)} events on strips, {len(ev1)} on "
                                  "one device, not equal")
         n_chunks = PIXEL_CHUNKS * S
-        want = ({"refractory_count": n_chunks, "refractory_apply": n_chunks * PIXEL_F,
-                 "refractory_scan": 0, "scan": 0} if preset is None else
-                {"refractory_count": 0, "refractory_apply": 0, "refractory_scan": 0,
-                 "scan": n_chunks})
+        want = ({"refractory_scan_strips": n_chunks, "refractory_scan": 0, "scan": 0}
+                if preset is None else
+                {"refractory_scan_strips": 0, "refractory_scan": 0, "scan": n_chunks})
         if launches != want:
             raise AssertionError(f"[pixel] {tag}: launches {launches}, want {want}")
         log(f"[pixel] {tag}{' (1 pad row)' if h % S else ''}: {len(ev1)} events equal to "
@@ -2402,104 +2403,103 @@ def phase_pixel(torch, np, dev):
     return out
 
 
-def split_k1(torch, es, args, S, plain=False):
-    """K1's halves (or their plain versions) over S row strips of `args`
-    (refr_inputs), the strips' K combined per frame on the card; returns
-    what refractory_scan returns."""
+def strip_rows(torch, args, S):
+    """refractory_scan's arguments (refr_inputs) cut into S row strips."""
     from v2e_tpu_torch.parallel.mesh import strip_bounds
 
-    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R = args
-    count = es.refractory_count_plain if plain else es.refractory_count
-    apply = es.refractory_apply_plain if plain else es.refractory_apply
-    F, h, w = lp.shape
-    st = []
-    for a, b in strip_bounds(h, S):
-        rows = [x[..., a:b, :].clone(memory_format=torch.contiguous_format)
-                for x in (lp, leak, shot, pos, neg, base, mem)]
-        st.append(rows + [torch.empty((F, b - a, w), dtype=torch.int16, device=lp.device),
-                          torch.empty((F, b - a, w), dtype=torch.int16, device=lp.device),
-                          torch.zeros(F, dtype=torch.int32, device=lp.device)])
-    for s in st:
-        count(s[0], s[1], s[3], s[4], s[5], s[9], 0)
-    Ks = []
-    for f in range(F):
-        K = torch.stack([s[9][f] for s in st]).amax()
-        Ks.append(K)
-        for s in st:
-            apply(*s[:7], dts, t_prevs, R, K, f, s[7], s[8], s[9])
-    return (torch.cat([s[5] for s in st]), torch.cat([s[6] for s in st]),
-            torch.cat([s[7] for s in st], 1), torch.cat([s[8] for s in st], 1), torch.stack(Ks))
+    return [tuple(x[..., a:b, :].clone(memory_format=torch.contiguous_format)
+                  for x in args[:7]) + args[7:] for a, b in strip_bounds(args[0].shape[1], S)]
 
 
-def phase_k1_halves(torch, dev, launches):
-    """`[k1-halves]`: K1's two halves over 3 strips at run B's shape (96
-    frames of 260x346 at 1/360 s, R = 0.5 ms, refr_inputs) against their
-    plain versions and against K1 on the whole plane, all bit for bit; each
-    half timed on one strip (the first, 86 of 260 rows) beside its plain version and
-    its bound, and the split chunk beside K1's.  Returns the two kernels'
-    entries with the launches of the [pixel] run `launches`."""
+def kernel_device_ms(torch, fn, name, reps):
+    """Mean device ms per launch of the kernels whose name holds `name`,
+    over `reps` calls of fn under torch.profiler; None where the profiler
+    sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key and str(e.device_type).endswith("CUDA"):
+            total += getattr(e, "self_device_time_total", 0) or 0
+            count += e.count
+    return total / count / 1e3 if total > 0 else None
+
+
+def phase_k1_strips(torch, dev, launches):
+    """`[k1-strips]`: K1 on 3 strips of the card at run B's shape (96
+    frames of 260x346 at 1/360 s, R = 0.5 ms, refr_inputs) against its
+    plain version and against K1 on the whole plane, all bit for bit; the
+    split chunk (one call: 3 launches and the wait for them) timed beside
+    K1's chunk and K1's bound, and under the profiler the kernels' device
+    time at 3 strips and at 1 strip (a round trip through the exchange per
+    frame with no other strip to wait for) beside K1's: their excess over
+    K1 per frame is the cost of the second level of the barrier.  Returns
+    the kernel's entry with the launches of the [pixel] run `launches`."""
     from v2e_tpu_torch.ops.kernels import emulator_scan as es
 
     S, F = 3, PIXEL_F
     args = refr_inputs(torch, dev, F, 1.0 / (SRC_FPS * PIXEL_U), 0.0005)
-    before = (es.refractory_count.launches, es.refractory_apply.launches)
-    got = split_k1(torch, es, args, S)
-    want = split_k1(torch, es, args, S, plain=True)
+    strips, one = strip_rows(torch, args, S), strip_rows(torch, args, 1)
+    before = es.refractory_scan_strips.launches
+    got = es.refractory_scan_strips(strips)
+    want = es.refractory_scan_strips_plain(strips)
     whole = es.refractory_scan(*args)
     torch.cuda.synchronize()
-    for name, g, p, k in zip(("base", "mem", "counts", "i0", "K"), got, want, whole):
-        if not (torch.equal(g, p) and torch.equal(g, k)):
-            raise AssertionError(f"[k1-halves] {name}: the halves differ from their plain "
-                                 "versions or from K1")
-    if not bool(want[3].any()):
-        raise AssertionError("[k1-halves] the test data leaves the filter idle")
-    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R = args
-    rows = H // S
-    strip = [x[..., :rows, :].clone(memory_format=torch.contiguous_format)
-             for x in (lp, leak, shot, pos, neg, base, mem)]
-    counts = torch.empty((F, rows, W), dtype=torch.int16, device=dev)
-    i0 = torch.empty_like(counts)
-    kmax = torch.zeros(F, dtype=torch.int32, device=dev)
-    K = whole[4][0].clone()
-
-    def count(fn=es.refractory_count):
-        fn(strip[0], strip[1], strip[3], strip[4], strip[5], kmax, 0)
-
-    def apply(fn=es.refractory_apply):
-        fn(*strip, dts, t_prevs, R, K, 0, counts, i0, kmax)
-
-    ms = {"count": time_device_ms(torch, count, reps=200),
-          "apply": time_device_ms(torch, apply, reps=200),
-          "count_plain": time_ms(torch, lambda: count(es.refractory_count_plain), reps=20),
-          "apply_plain": time_ms(torch, lambda: apply(es.refractory_apply_plain), reps=20),
-          "split_chunk": time_ms(torch, lambda: split_k1(torch, es, args, S), reps=3),
-          "k1_chunk": time_ms(torch, lambda: es.refractory_scan(*args), reps=5)}
-    es.refractory_count.launches, es.refractory_apply.launches = before
-    npix = rows * W
-    # each input read once, each output written once: the count reads lp,
-    # leak, the thresholds and base and writes base; the apply (with the
-    # next frame's count) reads lp, shot, the thresholds, base, memory and
-    # the next leak and writes base, memory, counts and i0
-    b_count = bound(npix * 24, npix * 12)
-    b_apply = bound(npix * 37, npix * 40)
-    b_chunk = bound(F * H * W * 13 + H * W * 24, F * H * W * 40)  # K1's own bound
-    log(f"[k1-halves] 3 strips of {F} frames at {W}x{H}: counts, i0, K, base and memory "
-        f"equal to the plain versions and to K1 bit for bit; on one strip of {rows} rows: "
-        f"count {ms['count'] * 1e3:.2f} us (plain {ms['count_plain']:.3f} ms, bound "
-        f"{b_count[0] * 1e3:.3f} us), apply {ms['apply'] * 1e3:.2f} us (plain "
-        f"{ms['apply_plain']:.3f} ms, bound {b_apply[0] * 1e3:.3f} us); the split chunk "
-        f"{ms['split_chunk']:.3f} ms with the host's enqueue ({2 * F * S} launches), K1 "
-        f"{ms['k1_chunk']:.3f} ms; K1's bound for the chunk {b_chunk[0]:.4f} ms")
-    common = {"route": "cuda", "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
-              "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:247", "max_abs_err": 0.0,
-              "library_ms": None, "split_chunk_ms": ms["split_chunk"],
-              "k1_chunk_ms": ms["k1_chunk"], "k1_chunk_bound_ms": b_chunk[0]}
-    return [dict(common, name="refractory_count", launches=launches["refractory_count"],
-                 ms=ms["count"], plain_ms=ms["count_plain"], bound_ms=b_count[0],
-                 bound_by=b_count[1]),
-            dict(common, name="refractory_apply", launches=launches["refractory_apply"],
-                 ms=ms["apply"], plain_ms=ms["apply_plain"], bound_ms=b_apply[0],
-                 bound_by=b_apply[1])]
+    grids = es.refractory_scan_strips.last_call[1]
+    for k, name in enumerate(("base", "mem", "counts", "i0")):
+        g = torch.cat([r[k] for r in got], dim=-2)
+        if not (torch.equal(g, torch.cat([r[k] for r in want], dim=-2))
+                and torch.equal(g, whole[k])):
+            raise AssertionError(f"[k1-strips] {name}: the strips differ from their plain "
+                                 "version or from K1")
+    if not all(torch.equal(r[4], whole[4]) and torch.equal(r[4], w[4])
+               for r, w in zip(got, want)):
+        raise AssertionError("[k1-strips] K: the strips differ from their plain version or K1")
+    if not bool(whole[3].any()):
+        raise AssertionError("[k1-strips] the test data leaves the filter idle")
+    ms = {"split_chunk": time_ms(torch, lambda: es.refractory_scan_strips(strips), reps=20),
+          "one_strip_chunk": time_ms(torch, lambda: es.refractory_scan_strips(one), reps=20),
+          "k1_chunk": time_ms(torch, lambda: es.refractory_scan(*args), reps=20),
+          "plain": time_ms(torch, lambda: es.refractory_scan_strips_plain(strips), reps=2)}
+    dev_ms = {"strips": kernel_device_ms(torch, lambda: es.refractory_scan_strips(strips),
+                                         "refr_strips", 10),
+              "one_strip": kernel_device_ms(torch, lambda: es.refractory_scan_strips(one),
+                                            "refr_strips", 10),
+              "k1": kernel_device_ms(torch, lambda: es.refractory_scan(*args),
+                                     "refr_persistent", 10)}
+    es.refractory_scan_strips.launches = before
+    # K1's bound: each input read once, each output written once (13 B per
+    # pixel-frame, the state planes once)
+    b_chunk = bound(F * H * W * 13 + H * W * 24, F * H * W * 40)
+    hop = {k: (None if dev_ms[k] is None or dev_ms["k1"] is None
+               else (dev_ms[k] - dev_ms["k1"]) / F * 1e3) for k in ("strips", "one_strip")}
+    fmt = lambda v, f=".4f": "not measured" if v is None else format(v, f)
+    log(f"[k1-strips] {S} strips of {F} frames at {W}x{H}, grids "
+        f"{[(g.blocks, g.threads) for g in grids]}: counts, i0, K, base and memory equal to "
+        f"the plain version and to K1 bit for bit; the split chunk {ms['split_chunk']:.4f} ms "
+        f"per call ({S} launches and the wait), one strip {ms['one_strip_chunk']:.4f} ms, K1 "
+        f"{ms['k1_chunk']:.4f} ms (K1's former two halves: 20.7 ms on an H100 80GB HBM3 at "
+        f"700 W); device per launch: "
+        f"strips {fmt(dev_ms['strips'])} ms, one strip {fmt(dev_ms['one_strip'])} ms, K1 "
+        f"{fmt(dev_ms['k1'])} ms; over K1 per frame: {fmt(hop['strips'], '.2f')} us at "
+        f"{S} strips, {fmt(hop['one_strip'], '.2f')} us at 1 (the exchange's round trip); "
+        f"K1's bound {b_chunk[0]:.4f} ms; plain {ms['plain']:.1f} ms")
+    return {"name": "refractory_scan_strips", "route": "cuda",
+            "source": "v2e_tpu_torch/csrc/emulator_scan.cu",
+            "replaces": "v2e_tpu/ops/pallas/emulator_scan.py:247",
+            "launches": launches["refractory_scan_strips"], "max_abs_err": 0.0,
+            "ms": dev_ms["strips"] if dev_ms["strips"] is not None else ms["split_chunk"],
+            "plain_ms": ms["plain"], "bound_ms": b_chunk[0], "bound_by": b_chunk[1],
+            "library_ms": None, "split_chunk_ms": ms["split_chunk"],
+            "one_strip_chunk_ms": ms["one_strip_chunk"], "k1_chunk_ms": ms["k1_chunk"],
+            "device_ms": dev_ms, "hop_us_per_frame": hop,
+            "grids": [[g.blocks, g.threads, int(g.regs)] for g in grids]}
 
 
 def pixel_sums(np, ev, h, w):
@@ -2949,8 +2949,8 @@ def main() -> int:
     pixel = phase_pixel(torch, np, dev)
     log(f"[pixel] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    halves = phase_k1_halves(torch, dev, pixel[f"R=0.5ms {W}x{H} S=3"]["launches"])
-    log(f"[k1-halves] {time.perf_counter() - t:.2f} s")
+    k1_strips = phase_k1_strips(torch, dev, pixel[f"R=0.5ms {W}x{H} S=3"]["launches"])
+    log(f"[k1-strips] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     segment = phase_segment(torch, np, dev)
     log(f"[segment] {time.perf_counter() - t:.2f} s")
@@ -2970,7 +2970,7 @@ def main() -> int:
     log("[native] " + json.dumps({"host_cpu": cpu_model(), "functions": host_ms}))
     log("[training] " + json.dumps(training))
     log("[parallel] " + json.dumps({"pixel": pixel, "segment": segment, "ddp": ddp}))
-    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, *halves]}))
+    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, k1_strips]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -647,7 +647,7 @@ def test_synthetic_cli_device_path_on_card_matches_cpu(cuda, tmp_path, refractor
     np.testing.assert_array_equal(events["cuda"], events["cpu"])
 
 
-# ---- several devices: K1's halves, pixel strips and time segments ----
+# ---- several devices: K1 on strips, pixel strips and time segments ----
 
 def card_strips(cuda, n):
     from v2e_tpu_torch.parallel.mesh import Mesh
@@ -655,53 +655,107 @@ def card_strips(cuda, n):
     return Mesh([[cuda] * n], ("data", "spatial"))
 
 
-@pytest.mark.parametrize("F,H,W,S", [(96, 260, 346, 1), (96, 260, 346, 2), (96, 260, 346, 3),
-                                     (24, 720, 1280, 4)])
-def test_refractory_halves_match_plain(cuda, F, H, W, S):
-    """K1's two halves over S strips of one card, K combined per frame,
-    against the plain version of K1 and K1 itself on the whole plane: all
-    equal bit for bit; one count and F applies per strip."""
-    from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_apply, refractory_count
+def strip_args(args, S):
+    """refractory_scan's arguments cut into S row strips."""
     from v2e_tpu_torch.parallel.mesh import strip_bounds
 
-    R = 0.0005
-    args = refractory_inputs(cuda, F, H, W, R)
-    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, _ = args
-    want = refractory_scan_plain(*args)
+    rows = lambda x, a, b: x[..., a:b, :].clone(memory_format=torch.contiguous_format)
+    return [tuple(rows(x, a, b) for x in args[:7]) + args[7:]
+            for a, b in strip_bounds(args[0].shape[1], S)]
+
+
+@pytest.mark.parametrize("F,H,W,S", [(96, 260, 346, 1), (96, 260, 346, 2), (96, 260, 346, 3),
+                                     (96, 261, 346, 3), (96, 260, 346, 8), (7, 21, 17, 8),
+                                     (24, 720, 1280, 4)])
+def test_refractory_strips_match_plain_and_k1(cuda, F, H, W, S):
+    """K1 on S strips of one card (one cooperative launch per strip, each
+    frame's K exchanged in pinned host memory) against its plain version
+    and against K1 on the whole plane: all equal bit for bit; one launch
+    per strip; the strips' grids fit the card together (odd and padded
+    shapes, 8 strips, and 720x1280 in the global-state form)."""
+    from v2e_tpu_torch.ops.kernels.emulator_scan import (
+        refractory_scan_strips,
+        refractory_scan_strips_plain,
+    )
+
+    args = refractory_inputs(cuda, F, H, W, 0.0005)
+    strips = strip_args(args, S)
     whole = refractory_scan(*args)
-    st = []
-    for a, b in strip_bounds(H, S):
-        rows = lambda x: x[..., a:b, :].clone(memory_format=torch.contiguous_format)
-        st.append([rows(lp), rows(leak), rows(shot), rows(pos), rows(neg), rows(base),
-                   rows(mem), torch.empty((F, b - a, W), dtype=torch.int16, device=cuda),
-                   torch.empty((F, b - a, W), dtype=torch.int16, device=cuda),
-                   torch.zeros(F, dtype=torch.int32, device=cuda)])
-    counts = (refractory_count.launches, refractory_apply.launches)
-    for s in st:
-        refractory_count(s[0], s[1], s[3], s[4], s[5], s[9], 0)
-    Ks = []
-    for f in range(F):
-        K = torch.stack([s[9][f] for s in st]).amax()
-        Ks.append(K)
-        for s in st:
-            refractory_apply(s[0], s[1], s[2], s[3], s[4], s[5], s[6], dts, t_prevs, R, K, f,
-                             s[7], s[8], s[9])
+    n0 = refractory_scan_strips.launches
+    got = refractory_scan_strips(strips)
     torch.cuda.synchronize()
-    assert (refractory_count.launches - counts[0], refractory_apply.launches - counts[1]) == (
-        S, S * F)
-    got = (torch.cat([s[5] for s in st]), torch.cat([s[6] for s in st]),
-           torch.cat([s[7] for s in st], 1), torch.cat([s[8] for s in st], 1), torch.stack(Ks))
-    for name, g, p, k in zip(("base", "mem", "counts", "i0", "K"), got, want, whole):
-        assert torch.equal(g, p), name
-        assert torch.equal(g, k), name
-    assert bool(want[3].any())
+    assert refractory_scan_strips.launches == n0 + S
+    want = refractory_scan_strips_plain(strips)
+    grids = refractory_scan_strips.last_call[1]
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert all(g.regs for g in grids) == (H * W <= 200_000)
+    if grids[0].regs:
+        assert sum(g.blocks for g in grids) <= sms
+    for name, k in zip(("base", "mem", "counts", "i0"), range(4)):
+        g = torch.cat([r[k] for r in got], dim=-2)
+        assert torch.equal(g, torch.cat([r[k] for r in want], dim=-2)), name
+        assert torch.equal(g, whole[k]), name
+    for r in got:
+        assert torch.equal(r[4], whole[4])
+    assert bool(whole[3].any())
+
+
+def test_strips_chunk_takes_one_launch_per_strip_and_no_plain(cuda, monkeypatch):
+    """A chunk on 3 strips of the card asks for K1 once per strip: one
+    launch of the strips' kernel per strip, no plain version of any scan
+    and no K1, and the chunk equals the whole plane's."""
+    from v2e_tpu_torch.emulator.config import EmulatorConfig
+    from v2e_tpu_torch.emulator.core import emulate_chunk_apply
+    from v2e_tpu_torch.ops.kernels import emulator_scan as es
+    from v2e_tpu_torch.parallel import emulate_chunk_sharded
+
+    cfg = EmulatorConfig(refractory_period_s=0.0005, leak_rate_hz=1.0, shot_noise_rate_hz=2.0)
+    params, state, frames, times, draws = (
+        moved(x, cuda) if hasattr(x, "__dataclass_fields__") else x
+        for x in variant_inputs(cfg))
+    frames, times = frames.to(cuda), times.to(cuda)
+    draws = {k: (None if v is None else v.to(cuda)) for k, v in draws.items()}
+    s1, o1 = emulate_chunk_apply(cfg, params, state, frames, times, draws)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain scan ran")
+    for name in ("refractory_scan_plain", "refractory_scan_strips_plain",
+                 "refractory_count_plain", "refractory_apply_plain", "scan_plain"):
+        monkeypatch.setattr(es, name, refuse)
+    n0, k1 = es.refractory_scan_strips.launches, es.refractory_scan.launches
+    s2, o2 = emulate_chunk_sharded(cfg, card_strips(cuda, 3), params, state, frames, times,
+                                   draws=draws)
+    torch.cuda.synchronize()
+    assert (es.refractory_scan_strips.launches - n0, es.refractory_scan.launches - k1) == (3, 0)
+    for k in o1:
+        assert torch.equal(o1[k], o2[k]), k
+    assert torch.equal(s1.base_log_frame, s2.base_log_frame)
+
+
+def test_strips_missing_participant_raises_within_limit(cuda):
+    """One strip launched into an exchange of two, with a 10 ms limit: the
+    kernel gives up, the call raises instead of hanging, and the next call
+    runs normally."""
+    import time
+
+    from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan_strips
+
+    args = refractory_inputs(cuda, 8, 40, 64, 0.0005)
+    strips = strip_args(args, 2)
+    t = time.perf_counter()
+    with pytest.raises(RuntimeError, match="did not reach the exchange"):
+        refractory_scan_strips(strips[:1], timeout_s=0.01, n_strips=2)
+    assert time.perf_counter() - t < 5.0
+    got = refractory_scan_strips(strips)
+    whole = refractory_scan(*args)
+    assert torch.equal(torch.cat([r[2] for r in got], dim=1), whole[2])
 
 
 @pytest.mark.parametrize("name", ["refractory", "k2", "scidvs", "csdvs", "per_frame"])
 def test_strips_on_card_equal_one_plane(cuda, name):
     """`emulate_chunk_sharded` over 3 strips of the card equals
     `emulate_chunk_apply` on the whole plane, every output and the state
-    bit for bit (K1's halves, K2 per strip, the SciDVS loop, the CSDVS
+    bit for bit (K1 on strips, K2 per strip, the SciDVS loop, the CSDVS
     surround gathered, the probe and states)."""
     import dataclasses
 

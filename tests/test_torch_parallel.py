@@ -1,13 +1,15 @@
 """Pixel strips and pad rows of the port (v2e_tpu_torch.parallel.mesh,
 EmulatorConfig.pad_rows) against the JAX package on the CPU.
 
-* K1's two halves (`refractory_count`, `refractory_apply`), their plain
-  versions run strip by strip with the strips' K combined per frame,
-  equal `refractory_scan_plain` on the whole plane bit for bit;
+* K1 on strips: `refractory_scan_strips_plain` (each strip's count, the
+  strips' maximum, each strip's apply, per frame) on 1, 2, 3 and 8 strips
+  equals `refractory_scan_plain` on the whole plane bit for bit; the
+  kernel's launch plan (`strips_plan`); a chunk on strips asks for K1 once
+  per strip (one STRIPS request each);
 * `emulate_chunk_sharded` on 2, 3 and 8 strips of the CPU equals
   v2e_tpu's `emulate_chunk_sharded` on its 8-device CPU mesh, event for
   event (cutoff 0; the port is handed the JAX run's draws), with the
-  refractory filter (K1's halves), without it (K2) and at H = 30 padded
+  refractory filter (K1 on strips), without it (K2) and at H = 30 padded
   to 32;
 * SciDVS, CSDVS (exact and Euler), the probe and the state frames on
   strips equal the port's single-device run bit for bit, and a mesh of
@@ -35,14 +37,21 @@ from v2e_tpu.parallel import emulate_chunk_sharded as jax_sharded
 from v2e_tpu.parallel import make_mesh as jax_make_mesh
 from v2e_tpu_torch.emulator import EventEmulator
 from v2e_tpu_torch.emulator.config import EmulatorConfig
-from v2e_tpu_torch.emulator.core import draw_chunk_noise, emulate_chunk_apply
+from v2e_tpu_torch.emulator.core import (
+    STRIPS,
+    chunk_program,
+    draw_chunk_noise,
+    emulate_chunk_apply,
+    run_local,
+)
 from v2e_tpu_torch.emulator.state import from_jax_emulator, init_state
 from v2e_tpu_torch.ops.kernels.emulator_scan import (
-    refractory_apply,
-    refractory_count,
+    StripGrid,
     refractory_scan_plain,
+    refractory_scan_strips,
+    strips_plan,
 )
-from v2e_tpu_torch.parallel import emulate_chunk_sharded, make_mesh
+from v2e_tpu_torch.parallel import emulate_chunk_sharded, make_mesh, shard_emulator_args
 from v2e_tpu_torch.parallel.mesh import Mesh, strip_bounds
 
 CPU = torch.device("cpu")
@@ -62,7 +71,12 @@ def moving_frames(F, H, W, seed=0):
     return np.round(np.clip(frames, 0, 255)).astype(np.float32)
 
 
-def test_split_halves_equal_refractory_scan_plain():
+@pytest.mark.parametrize("S", [1, 2, 3, 8])
+def test_strips_plain_equals_refractory_scan_plain(S):
+    """K1 on S row strips of a 21x17 plane (the plain version, as the
+    wrapper takes it for CPU tensors) equals K1's plain version on the
+    whole plane: base, memory, counts, i0 and K bit for bit, the filter
+    acting."""
     rng = np.random.default_rng(3)
     F, H, W, R = 10, 21, 17, 0.0005
     t = lambda x: torch.from_numpy(np.asarray(x, np.float32))
@@ -73,30 +87,121 @@ def test_split_halves_equal_refractory_scan_plain():
     base, mem = lp[0].clone(), torch.full((H, W), -R)
     dts = torch.full((F,), 1 / 3000.0)
     t_prevs = torch.cumsum(dts, 0) - dts
-    want = refractory_scan_plain(lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R)
-
-    bounds = strip_bounds(H, 3)
+    args = (lp, leak, shot, pos, neg, base, mem, dts, t_prevs, R)
+    want = refractory_scan_plain(*args)
     rows = lambda x, a, b: x[..., a:b, :].clone(memory_format=torch.contiguous_format)
-    st = [dict(lp=rows(lp, a, b), leak=rows(leak, a, b), shot=rows(shot, a, b),
-               pos=rows(pos, a, b), neg=rows(neg, a, b), base=rows(base, a, b),
-               mem=rows(mem, a, b), counts=torch.empty((F, b - a, W), dtype=torch.int16),
-               i0=torch.empty((F, b - a, W), dtype=torch.int16),
-               kmax=torch.zeros(F, dtype=torch.int32)) for a, b in bounds]
-    for s in st:
-        refractory_count(s["lp"], s["leak"], s["pos"], s["neg"], s["base"], s["kmax"], 0)
-    Ks = []
-    for f in range(F):
-        K = torch.stack([s["kmax"][f] for s in st]).amax()
-        Ks.append(K)
-        for s in st:
-            refractory_apply(s["lp"], s["leak"], s["shot"], s["pos"], s["neg"], s["base"],
-                             s["mem"], dts, t_prevs, R, K, f, s["counts"], s["i0"], s["kmax"])
-    got = (torch.cat([s["base"] for s in st]), torch.cat([s["mem"] for s in st]),
-           torch.cat([s["counts"] for s in st], 1), torch.cat([s["i0"] for s in st], 1),
-           torch.stack(Ks))
-    for name, a, b in zip(("base", "mem", "counts", "i0", "K"), got, want):
-        assert torch.equal(a, b), name
+    strips = [tuple(rows(x, a, b) for x in args[:7]) + (dts, t_prevs, R)
+              for a, b in strip_bounds(H, S)]
+    before = [x.clone() for x in strips[0][:7]]
+    got = refractory_scan_strips(strips)
+    assert len(got) == S and refractory_scan_strips.launches == 0
+    for s, (a, b) in enumerate(strip_bounds(H, S)):
+        assert torch.equal(got[s][4], want[4]), (s, "K")
+        for name, g, w in zip(("base", "mem", "counts", "i0"), got[s], want):
+            assert torch.equal(g, w[..., a:b, :]), (s, name)
+    assert all(torch.equal(x, y) for x, y in zip(before, strips[0][:7]))  # inputs kept
     assert want[3].any() and int(want[2].abs().sum()) > 100  # the filter acted
+
+
+def test_strips_refuse_unequal_frames():
+    F, h, W = 4, 3, 5
+    strip = lambda F, R: (torch.zeros(F, h, W), None, None, torch.ones(h, W),
+                          torch.ones(h, W), torch.zeros(h, W), torch.zeros(h, W),
+                          torch.ones(F), torch.zeros(F), R)
+    for other in (strip(F + 1, 0.001), strip(F, 0.002)):
+        with pytest.raises(ValueError, match="strip 1"):
+            refractory_scan_strips([strip(F, 0.001), other])
+
+
+def fake_occupancy(device, regs, threads):
+    """An H100-like occupancy: 64 registers a thread in the register form,
+    32 in the global form, 65,536 registers and 2,048 threads an SM."""
+    return min(2048 // threads, 65536 // (threads * (64 if regs else 32)))
+
+
+@pytest.mark.parametrize("npixs,devices", [
+    ((260 * 346,), (0,)),                            # one strip: K1's grid
+    ((87 * 346, 87 * 346, 86 * 346), (0, 0, 0)),     # run B's plane in 3 strips of one card
+    ((33 * 346,) * 8, (0,) * 8),                     # 8 strips of one card
+    ((180 * 1280,) * 4, (0, 0, 0, 0)),               # 720x1280 in 4: the global form
+    ((180 * 1280,) * 4, (0, 1, 2, 3)),               # one strip per card
+    ((87 * 346,) * 3, (0, 0, 1)),                    # two strips on one card, one on another
+    ((5,) * 3, (0, 0, 0)),                           # tiny strips
+])
+def test_strips_plan_grids_fit_together(npixs, devices):
+    """The strips of a device fit on it together: in the register form one
+    pixel per thread, at most one block per SM of the device in all; in the
+    global form at most occupancy x SMs blocks; a strip alone on its device
+    gets K1's grid (blocks = SMs, or occupancy x SMs)."""
+    sms = {d: 132 for d in devices}
+    grids = strips_plan(npixs, devices, sms, fake_occupancy)
+    assert len(grids) == len(npixs)
+    for d in set(devices):
+        mine = [(p, g) for p, g, e in zip(npixs, grids, devices) if e == d]
+        for p, g in mine:
+            assert 1 <= g.blocks <= 512 and 32 <= g.threads <= 1024 and g.threads % 32 == 0
+            assert fake_occupancy(d, g.regs, g.threads) >= 1
+            if g.regs:
+                assert g.threads - 32 < -(-p // g.blocks) <= g.threads
+        if all(g.regs for _, g in mine):
+            assert sum(g.blocks for _, g in mine) <= sms[d]
+        else:
+            assert not any(g.regs for _, g in mine)
+            assert sum(g.blocks for _, g in mine) <= fake_occupancy(d, False, 1024) * sms[d]
+        if len(mine) == 1:
+            (p, g), = mine
+            assert g.blocks == (min(-(-p // 32), 132) if g.regs
+                                else fake_occupancy(d, False, 1024) * 132)
+    if npixs == (87 * 346, 87 * 346, 86 * 346):
+        assert grids[0] == StripGrid(44, 704, True)
+
+
+def test_strips_plan_refuses_what_cannot_be_resident():
+    """More strips on a device than it has SMs, or a block no SM holds,
+    raise; so do no strips, more than 32, and an empty strip."""
+    with pytest.raises(ValueError, match="one block per strip"):
+        strips_plan((100,) * 5, (0,) * 5, {0: 4}, fake_occupancy)
+    with pytest.raises(ValueError, match="does not fit"):
+        strips_plan((1000,), (0,), {0: 132}, lambda d, r, t: 0)
+    for npixs in ((), (10,) * 33, (10, 0)):
+        with pytest.raises(ValueError):
+            strips_plan(npixs, (0,) * len(npixs), {0: 132}, fake_occupancy)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_chunk_on_strips_requests_k1_once_per_strip(S):
+    """Under R > 0 the chunk program of each strip yields exactly one
+    request, a STRIPS request carrying its rows' arguments; answered
+    together, the programs end with K1's result on the whole plane, and
+    `run_local` answers the request of a lone strip alike."""
+    F, H, W = 5, 12, 10
+    cfg = EmulatorConfig(leak_rate_hz=5.0, refractory_period_s=0.0005,
+                         shot_noise_rate_hz=20.0)
+    frames = torch.from_numpy(moving_frames(F, H, W, seed=4))
+    times = torch.arange(1, F + 1, dtype=torch.float32) / 1500.0
+    gen = torch.Generator().manual_seed(5)
+    params, state = init_state(cfg, frames[0], 0.0, gen)
+    draws = draw_chunk_noise(cfg, F, (H, W), gen, CPU)
+    pieces = shard_emulator_args(strips(S), params, state, frames[1:], times, draws)
+    programs = [chunk_program(cfg, *piece, row0=a, split=True)
+                for (a, _), piece in zip(strip_bounds(H, S), pieces)]
+    requests = [p.send(None) for p in programs]
+    assert [r[0] for r in requests] == [STRIPS] * S
+    assert [tuple(r[1][0].shape) for r in requests] == [(F, b - a, W)
+                                                       for a, b in strip_bounds(H, S)]
+    results = []
+    for program, answer in zip(programs, refractory_scan_strips([r[1] for r in requests])):
+        with pytest.raises(StopIteration) as stop:
+            program.send(answer)
+        results.append(stop.value.value)
+    _, want = emulate_chunk_apply(cfg, params, state, frames[1:], times, draws)
+    got = torch.cat([r[1]["ev_count"] for r in results], dim=1)
+    assert torch.equal(got, want["ev_count"]) and int(got.abs().sum()) > 20
+    assert all(torch.equal(r[1]["K"], want["K"]) for r in results)
+    # run_local answers a lone strip's request the same way
+    _, alone = run_local(cfg, chunk_program(cfg, params, state, frames[1:], times, draws,
+                                            split=True))
+    assert all(torch.equal(alone[k], want[k]) for k in ("ev_count", "i0", "K"))
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +212,7 @@ def jax_mesh():
 
 
 @pytest.mark.parametrize("refractory,H,pad", [(0.0005, 16, 0), (0.0, 16, 0), (0.0005, 30, 2)],
-                         ids=["k1_halves", "k2", "h30_padded"])
+                         ids=["k1_strips", "k2", "h30_padded"])
 def test_strips_equal_v2e_tpu_sharded(jax_mesh, refractory, H, pad):
     F, W = 8, 24
     kw = dict(sigma_thres=0.03, leak_rate_hz=5.0, leak_jitter_fraction=0.1,
@@ -148,7 +253,7 @@ VARIANTS = {
 @pytest.mark.parametrize("name", sorted(VARIANTS))
 def test_strips_equal_single_device(name):
     """Every path on 1 to 3 strips equals the port's run on the whole plane
-    (one strip: K1's halves against K1)."""
+    (one strip: K1 on strips against K1)."""
     F, H, W = 6, 16, 20
     cfg = EmulatorConfig(leak_rate_hz=5.0, **VARIANTS[name])
     frames = torch.from_numpy(moving_frames(F, H, W, seed=1))

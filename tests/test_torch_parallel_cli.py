@@ -3,7 +3,7 @@ takes the CPU (as tests/test_cli_extra.py::TestMultiDevice runs the JAX
 CLI on virtual CPU devices):
 
 * --devices 4 --parallel_mode pixel and --devices 6 at H = 64 (two inert
-  pad rows; the refractory filter on, so K1's halves) write the
+  pad rows; the refractory filter on, so K1 on strips) write the
   single-device event stream;
 * --devices 8 --parallel_mode segment --segment_warmup 2 runs, its event
   total within the JAX test's bound of the single-device run's;

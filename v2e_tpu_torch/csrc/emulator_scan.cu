@@ -1,6 +1,7 @@
 // The DVS emulator's sequential core, one chunk of F frames over an H*W
-// pixel plane: K1 with the closed-form refractory filter, and K2 without it
-// (at the end of this file).
+// pixel plane: K1 with the closed-form refractory filter, K1 on pixel strips
+// (refr_strips, after K1), and K2 without the filter (at the end of this
+// file).
 //
 // K1 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_refractory_pallas
 // (_refr_kernel).  The plain PyTorch version is
@@ -401,140 +402,362 @@ extern "C" int v2e_refractory_scan(const float* lp, const float* leak,
 }
 
 
-// K1's two halves, for pixel strips on several devices
-// (v2e_tpu_torch/parallel/mesh.py): K1 with its per-frame reduction of K
-// lifted out of the kernel, because K1's grid barrier cannot span cards
-// (CUDA has no cooperative launch across devices).  The plain versions are
-// v2e_tpu_torch/ops/kernels/emulator_scan.py::refractory_count_plain and
-// refractory_apply_plain.
+
+// K1 on pixel strips (v2e_tpu_torch/parallel/mesh.py): refr_strips, ONE
+// cooperative launch per strip and chunk, each frame's K exchanged across
+// the strips in memory.  It replaces K1's two halves (the former refr_count
+// and refr_apply: F + 1 launches per strip, and the host taking each
+// frame's maximum over the strips between them).  The TPU counterpart is
+// v2e_tpu/ops/pallas/emulator_scan.py:247 (emulator_scan_refractory_pallas),
+// which the JAX package does not run under a mesh: there XLA runs the scan
+// and turns each frame's maximum into an all-reduce
+// (v2e_tpu/parallel/mesh.py:84-86).  The plain version is
+// v2e_tpu_torch/ops/kernels/emulator_scan.py::refractory_scan_strips_plain.
 //
-//   refr_count (K1's step 1, frame f): base -= leak[f]; the counts; the
-//     strip's largest count into kmax[f] (block max, one atomicMax a block);
-//   refr_apply (K1's step 3, frame f, given K[f] in device memory): the
-//     filter constants (frame_filter), the counts again from lp and the
-//     leaked base, the filter and base update (apply_pixel), shot reset,
-//     counts and i0 stored; then step 1 of frame f + 1 on the same pixel,
-//     so a chunk takes F + 1 launches per strip.
-// Between the two, the host takes the maximum over the strips' kmax[f]
-// and hands K[f] back to each strip's device.  Each half uses K1's own
-// pixel_count_k1, frame_filter and apply_pixel, built with --fmad=false,
-// so every strip equals K1 on the whole plane bit for bit.
+// What it computes: K1 on the strip's rows with K[f] the largest count over
+// EVERY strip's pixels, so the strips together equal K1 on the whole plane
+// bit for bit.  The per-pixel code is K1's own (pixel_count_k1,
+// frame_filter, apply_pixel, mul_add_once, --fmad=false), and so are its
+// two state forms (registers when each block of the strip's share of the
+// SMs holds one pixel per thread, global memory otherwise).
 //
-// Bound on the card: memory bytes, 57 per pixel-frame (count: lp, leak,
-// base, thresholds in, base out; apply: lp, shot, base, memory, thresholds
-// in, base, memory, counts, i0 out), against K1's 13 (the state stays in
-// K1's registers); at the CLI's planes a launch is a few microseconds and
-// the host's reduction between launches costs more.  A thread per pixel
-// over a grid-stride loop, 256 threads a block.
+// Per frame f, with tag = tag0 + f + 1 (tag0 is the wrapper's counter,
+// unique over all calls, so no slot is ever cleared between chunks):
+//   1. every block of the strip publishes (tag | block max) to its slot of
+//      the strip's barrier in device memory (one atomic, as in K1);
+//   2. warp 0 of block 0 polls those slots (gpu scope), takes the strip's
+//      max and stores (tag | max) into the strip's slot of the exchange;
+//   3. it polls the exchange's S slots of the frame's parity until each
+//      carries the tag, takes their max, K[f], and republishes (tag | K[f])
+//      into the strip's K slot in device memory;
+//   4. warp 0 of every other block polls the K slot (gpu scope); then each
+//      block applies the filter as K1 does.
+// The exchange is mapped pinned host memory, which every card of the mesh
+// reaches, accessed at system scope (st/ld.relaxed.sys); the wrapper
+// allocates it and fixes it in code, for one card and for several.
+// Why these choices:
+//   - one launch per strip and chunk, no host in the loop: the halves'
+//     2 launches and host round trip per frame and strip cost ~36 us on an
+//     H100, where K1's barrier costs ~3 us;
+//   - only one warp per strip reads system memory (a read crosses PCIe);
+//     the other blocks wait on device memory for block 0's K;
+//   - one memory and one scope whether the strips share a card or not, so
+//     one card runs exactly the code that several cards run;
+//   - the exchange's parity keeps a strip one frame ahead from overwriting
+//     a word another strip has not read yet (it cannot get two ahead:
+//     frame f + 1 waits for every strip's f + 1 word, written after that
+//     strip read frame f's); the block slots and the K slot need none, as a
+//     block publishes frame f + 1 only after reading K[f], and block 0
+//     writes K[f] only after reading every block's frame-f slot.
+// Waiting is bounded: every poll loop reads %globaltimer and gives up after
+// timeout_ns (the other blocks after twice that, so block 0 decides
+// first).  Block 0 then writes an error word (code, strip, frame) into the
+// exchange and an abort tag into its K slot, the strip's blocks leave, and
+// the wrapper raises after the launch.  A strip that never arrives (a
+// failed launch, grids that cannot co-reside) is an error within the
+// limit, never a hang.
+//
+// Bound on the card: K1's 13 bytes per pixel-frame, and the latency of F
+// two-level barriers: to K1's barrier a frame adds the hop to block 0 and
+// back and a round trip through system memory (a write and a read across
+// PCIe, microseconds), against 0.35 us of bytes per frame at 260x346.
 
 namespace {
 
-constexpr int kSplitThreads = 256;
+constexpr unsigned long long kTagMask = 0xffffffff00000000ull;
+constexpr unsigned long long kAbortTag = kTagMask;  // above every frame's tag
+constexpr int kMaxStrips = 32;  // one exchange slot per lane of a warp
 
-__device__ __forceinline__ void block_max_to(int c, int* out) {
-  __shared__ int warp_max[kSplitThreads / 32];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed_sys(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.sys.global.b64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed_sys(unsigned long long* p,
+                                               unsigned long long v) {
+  asm volatile("st.relaxed.sys.global.b64 [%0], %1;\n" : : "l"(p), "l"(v) : "memory");
+}
+
+// Warp-wide: polls n tagged slots until every one carries `tag` (system
+// scope with kSys, else gpu scope); true with their largest value in *k,
+// false once timeout_ns have passed.  Each lane loads all its slots before
+// looking at any.
+template <int kPerLane, bool kSys>
+__device__ __forceinline__ bool poll_max(const unsigned long long* p, int n,
+                                         unsigned long long tag,
+                                         unsigned long long timeout_ns, int* k) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long t0 = global_ns();
+  while (true) {
+    unsigned long long v[kPerLane];
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r) {
+      const int j = lane + 32 * r;
+      v[r] = j < n ? (kSys ? ld_relaxed_sys(p + j) : ld_relaxed(p + j)) : tag;
+    }
+    bool done = true;
+    int m = 0;
+#pragma unroll
+    for (int r = 0; r < kPerLane; ++r) {
+      done = done && (v[r] & kTagMask) == tag;
+      m = max(m, (int)(unsigned)(v[r] & 0xffffffffull));
+    }
+    if (__all_sync(0xffffffffu, done)) {
+      *k = __reduce_max_sync(0xffffffffu, m);
+      return true;
+    }
+    // lane 0's clock decides for the warp
+    if (__shfl_sync(0xffffffffu, (int)(global_ns() - t0 > timeout_ns), 0)) return false;
+  }
+}
+
+struct StripArgs {
+  unsigned long long* slots;  // gridDim.x block slots, then the K slot
+  unsigned long long* xchg;   // 2 x n_strips exchange slots, then the error word
+  int strip, n_strips;
+  unsigned tag0;
+  unsigned long long timeout_ns;
+};
+
+// The error word: what timed out (1: a block of the strip, 2: a strip at
+// the exchange, 3: block 0's K), the strip and the frame.
+__device__ __forceinline__ void strips_error(const StripArgs a, int code, int f) {
+  st_relaxed_sys(a.xchg + 2 * a.n_strips,
+                 ((unsigned long long)code << 56) |
+                     ((unsigned long long)a.strip << 32) | (unsigned)f);
+}
+
+// The two-level barrier of frame f (see the note above), which reduces K[f]
+// over every strip: writes the frame's filter constants to *ff and returns
+// true, or returns false (in every thread of the block) when a wait timed
+// out or another block aborted.  Between the publish and the poll every
+// thread runs `prefetch`.
+template <class Prefetch>
+__device__ __forceinline__ bool strips_max(int c, int f, const StripArgs a,
+                                           int* k_out, int* warp_max, float dt,
+                                           float tp, float R, FrameFilter* ff,
+                                           FrameFilter* ff_shared, int* ok_shared,
+                                           Prefetch prefetch) {
   c = __reduce_max_sync(0xffffffffu, c);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) warp_max[warp] = c;
   __syncthreads();
+  const unsigned long long tag = (unsigned long long)(a.tag0 + (unsigned)f + 1u) << 32;
+  unsigned long long* kslot = a.slots + gridDim.x;
   if (warp == 0) {
     c = lane < (int)(blockDim.x >> 5) ? warp_max[lane] : 0;
     c = __reduce_max_sync(0xffffffffu, c);
-    if (lane == 0 && c > 0) atomicMax(out, c);
+    if (lane == 0) atomicExch(a.slots + blockIdx.x, tag | (unsigned)c);
   }
-}
-
-__device__ __forceinline__ int leak_and_count(const float* __restrict__ lp,
-                                              const float* __restrict__ leak,
-                                              const float* __restrict__ pos,
-                                              const float* __restrict__ neg,
-                                              size_t off, int i, float* b) {
-  if (leak != nullptr) *b = *b - leak[off + i];
-  float pe, ne;
-  return pixel_count_k1(lp[off + i], *b, pos[i], neg[i], &pe, &ne);
-}
-
-__global__ void __launch_bounds__(kSplitThreads)
-refr_count(const float* __restrict__ lp, const float* __restrict__ leak,
-           const float* __restrict__ pos, const float* __restrict__ neg,
-           float* __restrict__ base, int* __restrict__ kmax, int f, int npix) {
-  const size_t off = (size_t)f * (size_t)npix;
-  int cmax = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < npix;
-       i += gridDim.x * blockDim.x) {
-    float b = base[i];
-    cmax = max(cmax, leak_and_count(lp, leak, pos, neg, off, i, &b));
-    if (leak != nullptr) base[i] = b;
+  prefetch();
+  if (warp == 0) {
+    int k = 0, code = 0;
+    bool ok = true;
+    if (blockIdx.x == 0) {
+      unsigned long long* x = a.xchg + (size_t)(f & 1) * a.n_strips;
+      if (!poll_max<kMaxSlotsPerLane, false>(a.slots, gridDim.x, tag, a.timeout_ns, &k)) {
+        code = 1;
+      } else {
+        if (lane == 0) st_relaxed_sys(x + a.strip, tag | (unsigned)k);
+        if (!poll_max<1, true>(x, a.n_strips, tag, a.timeout_ns, &k)) code = 2;
+      }
+      ok = code == 0;
+      if (lane == 0) atomicExch(kslot, ok ? tag | (unsigned)k : kAbortTag);
+    } else if (lane == 0) {
+      const unsigned long long t0 = global_ns();
+      while (true) {
+        const unsigned long long v = ld_relaxed(kslot);
+        if ((v & kTagMask) == tag) {
+          k = (int)(unsigned)(v & 0xffffffffull);
+          break;
+        }
+        if ((v & kTagMask) == kAbortTag) {
+          ok = false;
+          break;
+        }
+        if (global_ns() - t0 > 2 * a.timeout_ns) {
+          ok = false;
+          code = 3;
+          break;
+        }
+      }
+    }
+    if (lane == 0) {
+      if (code) strips_error(a, code, f);
+      *ok_shared = ok;
+      if (ok) {
+        *ff_shared = frame_filter(k, dt, tp, R);
+        if (blockIdx.x == 0) k_out[f] = k;
+      }
+    }
   }
-  block_max_to(cmax, kmax + f);
+  __syncthreads();
+  *ff = *ff_shared;
+  return *ok_shared != 0;
 }
 
-__global__ void __launch_bounds__(kSplitThreads)
-refr_apply(const float* __restrict__ lp, const float* __restrict__ leak,
-           const uint8_t* __restrict__ shot, const float* __restrict__ pos,
-           const float* __restrict__ neg, float* __restrict__ base,
-           float* __restrict__ mem, const float* __restrict__ dts,
-           const float* __restrict__ t_prevs, const int* __restrict__ K,
-           int* __restrict__ kmax, int16_t* __restrict__ count_out,
-           int16_t* __restrict__ i0_out, int f, int n_frames, int npix, float R) {
-  const FrameFilter ff = frame_filter(*K, dts[f], t_prevs[f], R);
-  const size_t off = (size_t)f * (size_t)npix;
-  const bool next = f + 1 < n_frames;
-  int cmax = 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < npix;
-       i += gridDim.x * blockDim.x) {
-    const float l = lp[off + i];
-    const float pth = pos[i], nth = neg[i];
-    float b = base[i], mm = mem[i];
-    float pe, ne;
-    const int cnt = pixel_count_k1(l, b, pth, nth, &pe, &ne);
-    const bool sh = shot != nullptr && shot[off + i] != 0;
-    int i0;
-    const int c = apply_pixel(ff, cnt, pe, ne, l, pth, nth, sh, &b, &mm, &i0);
-    count_out[off + i] = (int16_t)c;
-    i0_out[off + i] = (int16_t)i0;
-    mem[i] = mm;
-    if (next) cmax = max(cmax, leak_and_count(lp, leak, pos, neg, off + npix, i, &b));
-    base[i] = b;
+// One strip of K1 on strips, one cooperative launch per chunk: K1's
+// refr_persistent with strips_max for its grid barrier (and leaving the
+// frame loop when a wait timed out).
+template <bool kRegs>
+__global__ void __launch_bounds__(kRefrMaxThreads)
+refr_strips(const float* __restrict__ lp, const float* __restrict__ leak,
+            const uint8_t* __restrict__ shot, const float* __restrict__ pos,
+            const float* __restrict__ neg, float* __restrict__ base,
+            float* __restrict__ mem, const float* __restrict__ dts,
+            const float* __restrict__ t_prevs, int* __restrict__ k_all,
+            StripArgs sa, int n_frames, int npix, float R,
+            int16_t* __restrict__ count_out, int16_t* __restrict__ i0_out) {
+  __shared__ int warp_max[kRefrMaxThreads / 32];
+  __shared__ FrameFilter ff_shared;
+  __shared__ int ok_shared;
+  const int nthr = gridDim.x * blockDim.x;
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+
+  if constexpr (kRegs) {
+    const bool own = tid < npix;
+    const int i = own ? tid : 0;
+    float b = 0.0f, mm = 0.0f, pth = 0.0f, nth = 0.0f, ln = 0.0f, lk = 0.0f;
+    uint8_t shn = 0;
+    if (own) {
+      b = base[i];
+      mm = mem[i];
+      pth = pos[i];
+      nth = neg[i];
+      ln = lp[i];
+      if (leak != nullptr) lk = leak[i];
+      if (shot != nullptr) shn = shot[i];
+    }
+    float dt_n = dts[0], tp_n = t_prevs[0];
+    for (int f = 0; f < n_frames; ++f) {
+      const size_t off = (size_t)f * (size_t)npix;
+      const float l = ln;
+      float pe = 0.0f, ne = 0.0f;
+      int cnt = 0;
+      if (own) {
+        if (leak != nullptr) b = b - lk;
+        cnt = pixel_count_k1(l, b, pth, nth, &pe, &ne);
+      }
+      const uint8_t sh = shn;
+      const float dt = dt_n, tp = tp_n;
+      FrameFilter ff;
+      if (!strips_max(cnt, f, sa, k_all, warp_max, dt, tp, R, &ff, &ff_shared, &ok_shared,
+                      [&]() {
+                        if (f + 1 < n_frames) {
+                          dt_n = dts[f + 1];
+                          tp_n = t_prevs[f + 1];
+                          if (own) {
+                            ln = lp[off + npix + i];
+                            if (leak != nullptr) lk = leak[off + npix + i];
+                            if (shot != nullptr) shn = shot[off + npix + i];
+                          }
+                        }
+                      }))
+        break;
+      if (own) {
+        int i0;
+        const int c = apply_pixel(ff, cnt, pe, ne, l, pth, nth, sh != 0, &b, &mm, &i0);
+        count_out[off + i] = (int16_t)c;
+        i0_out[off + i] = (int16_t)i0;
+      }
+    }
+    if (own) {
+      base[i] = b;
+      mem[i] = mm;
+    }
+  } else {
+    for (int f = 0; f < n_frames; ++f) {
+      const size_t off = (size_t)f * (size_t)npix;
+      int cmax = 0;
+      for (int i = tid; i < npix; i += nthr) {
+        float bb = base[i];
+        if (leak != nullptr) {
+          bb = bb - leak[off + i];
+          base[i] = bb;
+        }
+        float pe, ne;
+        cmax = max(cmax, pixel_count_k1(lp[off + i], bb, pos[i], neg[i], &pe, &ne));
+      }
+      FrameFilter ff;
+      if (!strips_max(cmax, f, sa, k_all, warp_max, dts[f], t_prevs[f], R, &ff, &ff_shared,
+                      &ok_shared, [] {}))
+        break;
+      for (int i = tid; i < npix; i += nthr) {
+        const float l = lp[off + i];
+        const float pth = pos[i], nth = neg[i];
+        float bb = base[i], mm = mem[i];
+        float pe, ne;
+        const int cnt = pixel_count_k1(l, bb, pth, nth, &pe, &ne);
+        const bool sh = shot != nullptr && shot[off + i] != 0;
+        int i0;
+        const int c = apply_pixel(ff, cnt, pe, ne, l, pth, nth, sh, &bb, &mm, &i0);
+        base[i] = bb;
+        mem[i] = mm;
+        count_out[off + i] = (int16_t)c;
+        i0_out[off + i] = (int16_t)i0;
+      }
+    }
   }
-  if (next) block_max_to(cmax, kmax + f + 1);
-}
-
-int split_blocks(int npix) {
-  const int b = (npix + kSplitThreads - 1) / kSplitThreads;
-  return b < 1 ? 1 : (b > 65535 ? 65535 : b);
 }
 
 }  // namespace
 
-// K1's step 1 for frame f on `stream`: base updated in place, kmax[f]
-// (zero before the call) receives the plane's largest count.  Returns the
-// launch's CUDA error.
-extern "C" int v2e_refractory_count(const float* lp, const float* leak,
-                                    const float* pos, const float* neg,
-                                    float* base, int* kmax, int f, int npix,
-                                    void* stream) {
-  if (npix == 0) return 0;
-  refr_count<<<split_blocks(npix), kSplitThreads, 0, (cudaStream_t)stream>>>(
-      lp, leak, pos, neg, base, kmax, f, npix);
-  return (int)cudaGetLastError();
+// Blocks per SM of refr_strips (the register form when regs != 0) at
+// `threads` threads per block, on the current device.  Returns a CUDA
+// error code.
+extern "C" int v2e_refractory_strips_occupancy(int regs, int threads, int* blocks_per_sm) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, regs ? refr_strips<true> : refr_strips<false>, threads, 0);
 }
 
-// K1's step 3 for frame f with the frame's K read from device memory, then
-// step 1 of frame f + 1 (kmax[f + 1], zero before the call) when f + 1 <
-// n_frames.  base and mem updated in place; counts and i0 written at frame
-// f.  Returns the launch's CUDA error.
-extern "C" int v2e_refractory_apply(const float* lp, const float* leak,
-                                    const uint8_t* shot, const float* pos,
-                                    const float* neg, float* base, float* mem,
-                                    const float* dts, const float* t_prevs,
-                                    const int* K, int* kmax, int16_t* counts,
-                                    int16_t* i0, int f, int n_frames, int npix,
-                                    float R, void* stream) {
-  if (npix == 0) return 0;
-  refr_apply<<<split_blocks(npix), kSplitThreads, 0, (cudaStream_t)stream>>>(
-      lp, leak, shot, pos, neg, base, mem, dts, t_prevs, K, kmax, counts, i0,
-      f, n_frames, npix, R);
+// The current device's address of pinned host memory (cudaHostGetDevicePointer).
+extern "C" int v2e_host_device_ptr(void* host, void** dev) {
+  return (int)cudaHostGetDevicePointer(dev, host, 0);
+}
+
+// One strip's launch of K1 on strips, on `stream`, no sync: a cooperative
+// grid of `blocks` x `threads` in the register form (regs != 0: one pixel
+// per thread) or the global-state form, as the wrapper's plan gives it.
+// leak and shot may be null; base and mem are updated in place.  k: F ints,
+// then (from index F rounded up to even) 2 x (blocks + 1) zeroed ints, the
+// strip's barrier slots.  xchg: this device's address of the exchange,
+// 2 x n_strips + 1 64-bit words in mapped pinned host memory, the error word
+// last, zero before the call.  tag0 + F + 1 must stay below 2^32 - 1.
+// Returns the launch's CUDA error (an invalid grid is an error).
+extern "C" int v2e_refractory_scan_strips(
+    const float* lp, const float* leak, const uint8_t* shot, const float* pos,
+    const float* neg, float* base, float* mem, const float* dts,
+    const float* t_prevs, int* k, int16_t* counts, int16_t* i0,
+    unsigned long long* xchg, int strip, int n_strips, unsigned int tag0,
+    long long timeout_ns, int n_frames, int npix, float R, int blocks,
+    int threads, int regs, void* stream) {
+  if (n_frames <= 0 || npix <= 0 || blocks < 1 || blocks > kMaxBlocks || threads < 32 ||
+      threads > kRefrMaxThreads || threads % 32 != 0 || n_strips < 1 ||
+      n_strips > kMaxStrips || strip < 0 || strip >= n_strips || timeout_ns <= 0 ||
+      (unsigned long long)tag0 + (unsigned)n_frames + 1ull >= 0xffffffffull ||
+      (regs && (long long)blocks * threads < npix))
+    return (int)cudaErrorInvalidValue;
+  StripArgs sa;
+  sa.slots = (unsigned long long*)(k + ((n_frames + 1) & ~1));
+  sa.xchg = xchg;
+  sa.strip = strip;
+  sa.n_strips = n_strips;
+  sa.tag0 = tag0;
+  sa.timeout_ns = (unsigned long long)timeout_ns;
+  void* args[] = {&lp,  &leak, &shot, &pos, &neg, &base,   &mem,    &dts,
+                  &t_prevs, &k, &sa, &n_frames, &npix, &R, &counts, &i0};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      regs ? (const void*)refr_strips<true> : (const void*)refr_strips<false>,
+      dim3(blocks), dim3(threads), args, 0, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -29,9 +29,12 @@ where a value couples the whole pixel plane (a frame's largest count K,
 the CSDVS surround) the program yields a request and goes on with the
 answer.  On one device `run_local` answers each request from the
 program's own plane.  Under pixel strips (parallel/mesh.py) one program
-runs per strip, in lock step, and the lead device answers each request
-across the strips (`parallel.mesh._drive`), so a strip computes what the
-same rows of the whole plane compute.
+runs per strip, in lock step, and each request is answered across the
+strips (`parallel.mesh._drive`), so a strip computes what the same rows of
+the whole plane compute: the refractory core is one request per chunk,
+which one call of `refractory_scan_strips` answers for every strip (the
+frames' K exchanged inside its kernels); SciDVS's K per frame and the
+CSDVS surround are answered on the lead device.
 """
 from __future__ import annotations
 
@@ -58,9 +61,8 @@ from v2e_tpu_torch.ops.core import (
     subtract_leak_current,
 )
 from v2e_tpu_torch.ops.kernels.emulator_scan import (
-    refractory_apply,
-    refractory_count,
     refractory_scan,
+    refractory_scan_strips,
     scan,
 )
 
@@ -75,9 +77,13 @@ CS_STEPS_PER_READ = 16
 
 # The requests a chunk program yields (see the module note):
 # (MAX, local maxima) -> the plane's maxima, same shape;
-# (SURROUND, lp, surround, dt) -> the plane's surround after dt (`_update_csdvs`).
+# (SURROUND, lp, surround, dt) -> the plane's surround after dt (`_update_csdvs`);
+# (STRIPS, args) -> K1 on the program's rows with K over the whole plane:
+#   what `refractory_scan(*args)` returns for those rows, answered for all
+#   strips at once by `refractory_scan_strips`.
 MAX = "max"
 SURROUND = "surround"
+STRIPS = "strips"
 
 
 def run_local(cfg: EmulatorConfig, program):
@@ -89,7 +95,12 @@ def run_local(cfg: EmulatorConfig, program):
             request = program.send(answer)
         except StopIteration as stop:
             return stop.value
-        answer = request[1] if request[0] == MAX else _update_csdvs(cfg, *request[1:])
+        if request[0] == MAX:
+            answer = request[1]
+        elif request[0] == STRIPS:  # a lone strip
+            answer = refractory_scan_strips([request[1]])[0]
+        else:
+            answer = _update_csdvs(cfg, *request[1:])
 
 
 def _logical_shape(cfg: EmulatorConfig, shape) -> Tuple[int, int]:
@@ -564,10 +575,10 @@ def chunk_program(
     split: bool = False,
 ):
     """`emulate_chunk_apply` as a program (see the module note) on rows
-    [row0, row0 + h) of the plane.  With `split` the refractory core runs
-    as K1's two halves, `refractory_count` and `refractory_apply`, with
-    each frame's K a MAX request between them (what pixel strips run);
-    without it, as K1 itself, whose K spans only the program's own rows.
+    [row0, row0 + h) of the plane.  With `split` the refractory core is
+    one STRIPS request, K1 with each frame's K taken over every strip (what
+    pixel strips run); without it, K1 itself, whose K spans only the
+    program's own rows.
     """
     frames = frames.to(torch.float32)
     times = times.to(torch.float32)
@@ -638,7 +649,7 @@ def chunk_program(
                 state.timestamp_mem.contiguous(), dts.contiguous(),
                 t_prevs.contiguous(), float(cfg.refractory_period_s))
         if split:
-            new_base, new_mem, signed16, i0_16, K = yield from _refractory_split(*args)
+            new_base, new_mem, signed16, i0_16, K = yield (STRIPS, args)
         else:
             new_base, new_mem, signed16, i0_16, K = refractory_scan(*args)
         # per-frame stride from K, the formula of the refractory filter
@@ -666,27 +677,6 @@ def chunk_program(
         **scidvs_state,
     )
     return new_state, outs
-
-
-def _refractory_split(lp, leak_delta, shot_any, pos_thres, neg_thres, base,
-                      timestamp_mem, dts, t_prevs, refractory_period_s):
-    """K1 as its two halves, with each frame's K a MAX request: the count
-    of frame 0, then per frame the apply (fused with the next frame's
-    count).  Returns what `refractory_scan` returns."""
-    F = lp.shape[0]
-    base = base.clone()
-    mem = timestamp_mem.clone()
-    counts = torch.empty(lp.shape, dtype=torch.int16, device=lp.device)
-    i0 = torch.empty_like(counts)
-    kmax = torch.zeros(F, dtype=torch.int32, device=lp.device)
-    refractory_count(lp, leak_delta, pos_thres, neg_thres, base, kmax, 0)
-    Ks = []
-    for f in range(F):
-        K = yield (MAX, kmax[f])
-        refractory_apply(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem, dts,
-                         t_prevs, refractory_period_s, K, f, counts, i0, kmax)
-        Ks.append(K)
-    return base, mem, counts, i0, torch.stack(Ks)
 
 
 def emulate_chunk(

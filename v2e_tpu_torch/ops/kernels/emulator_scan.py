@@ -14,21 +14,21 @@ memory bytes, 13 B per pixel per frame (lp and leak f32, shot u8, counts
 and i0 i16), and at the CLI's planes by the F grid barriers.  The TPU sent
 planes above 256K pixels to the XLA scan; this kernel has no size limit.
 
-K1's two halves, `refractory_count` and `refractory_apply`, compute what K1
-computes with its per-frame reduction of K lifted out of the kernel, for
-pixel strips on several devices (parallel/mesh.py): a grid barrier cannot
-span cards.  `refractory_count` is K1's step 1 for one frame (leak, counts,
-the strip's largest count, by atomicMax), `refractory_apply` its step 3
-(the filter constants from K, the filter, base update, shot reset, counts
-and i0 stored), fused with the next frame's step 1, so a chunk of F frames
-takes F + 1 launches per strip.  Each is an ordinary (not cooperative)
-launch, a thread per pixel over a grid-stride loop, and rounds every
-operation as K1 does, so strips equal K1 on the whole plane bit for bit.
-Both update their state in place.  Bound by memory bytes: the count reads
-lp, leak, base and the thresholds and writes base, the apply reads lp,
-shot, base, memory and the thresholds and writes base, memory, counts and
-i0 (57 B per pixel-frame in all, against K1's 13 B), and at the CLI's
-planes by the 2 launches and the host's cross-strip reduction per frame.
+`refractory_scan_strips` runs K1 on pixel strips (parallel/mesh.py):
+each strip's rows with each frame's K the largest count over every strip,
+so the strips together equal K1 on the whole plane bit for bit.  One
+cooperative launch per strip and chunk (`refr_strips`, same source), all S
+launched before anything waits, each strip on its own stream where strips
+share a device; inside, K1's tagged-slot barrier reduces the strip's
+maximum, and block 0 of each strip exchanges it with the other strips
+through slots in mapped pinned host memory, at system scope, which every
+card reaches.  Its launch plan (`strips_plan`: strips on one device share
+its SMs) is made in Python.  Every wait in the kernel has a time limit;
+the wrapper raises when one expired.  Bound as K1: 13 B per pixel-frame,
+and at the CLI's planes the latency of F two-level barriers.  The plain
+version, `refractory_scan_strips_plain`, is K1's plain loop per frame
+split at its maximum: each strip's count (`refractory_count_plain`), the
+largest over the strips, each strip's apply (`refractory_apply_plain`).
 
 K2 replaces v2e_tpu/ops/pallas/emulator_scan.py::emulator_scan_pallas, the
 core of every configuration with R <= 0.  `scan` launches its kernel (same
@@ -51,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -228,20 +228,20 @@ refractory_scan.launches = 0
 refractory_scan.last_call = None
 
 
-def refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, kmax, f) -> None:
-    """K1's step 1 for frame f, in place: base -= leak[f]; kmax[f] = the
-    largest count of the plane's pixels."""
+def refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, f) -> torch.Tensor:
+    """K1's step 1 for frame f: base -= leak[f] in place; returns the
+    largest count of the plane's pixels (0-d int32)."""
     if leak_delta is not None:
         base.sub_(leak_delta[f])
     pos, neg = compute_event_map(lp[f] - base, pos_thres, neg_thres)
-    kmax[f] = (pos + neg).max()
+    return (pos + neg).max()
 
 
-def refractory_apply_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem, dts,
-                           t_prevs, refractory_period_s, K, f, counts, i0s, kmax) -> None:
-    """K1's step 3 for frame f given the frame's K (a 0-d int32 tensor), in
-    place: the filter, base and memory updates, counts[f] and i0s[f]; then
-    step 1 of frame f + 1 when there is one (`refractory_count_plain`)."""
+def refractory_apply_plain(lp, shot_any, pos_thres, neg_thres, base, mem, dts, t_prevs,
+                           refractory_period_s, K, f, counts, i0s) -> None:
+    """K1's step 3 for frame f given the frame's K (a 0-d int32 tensor), on
+    the base step 1 left, in place: the filter, base and memory updates,
+    counts[f] and i0s[f]."""
     R = scalar(refractory_period_s, lp)
     pos, neg = compute_event_map(lp[f] - base, pos_thres, neg_thres)
     count = pos + neg
@@ -268,94 +268,295 @@ def refractory_apply_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base,
     base.copy_(b)
     counts[f] = (final_pos - final_neg).to(torch.int16)
     i0s[f] = i0.to(torch.int16)
-    if f + 1 < lp.shape[0]:
-        refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, kmax, f + 1)
 
 
-def _check_split(lp, leak_delta, shot_any, planes, f) -> None:
-    F, H, W = lp.shape
-    dev = lp.device
-    _check("lp", lp, torch.float32, (F, H, W), dev)
-    if leak_delta is not None:
-        _check("leak_delta", leak_delta, torch.float32, (F, H, W), dev)
-    if shot_any is not None:
-        _check("shot_any", shot_any, torch.uint8, (F, H, W), dev)
-    for name, t in planes:
-        _check(name, t, torch.float32, (H, W), dev)
-    if not 0 <= f < F:
-        raise ValueError(f"frame {f} outside the chunk's {F} frames")
+def _strips_frames(strips) -> int:
+    """The strips' common frame count; raises unless every strip has the
+    same frames and refractory period."""
+    if not strips:
+        raise ValueError("refractory_scan_strips: no strips")
+    F, R = strips[0][0].shape[0], float(strips[0][9])
+    for s, args in enumerate(strips):
+        if len(args) != 10:
+            raise ValueError(f"strip {s}: {len(args)} arguments, want refractory_scan's 10")
+        if args[0].shape[0] != F or float(args[9]) != R:
+            raise ValueError(f"strip {s}: {args[0].shape[0]} frames at R {args[9]}, strip 0 "
+                             f"{F} at R {R}")
+    return F
 
 
-def refractory_count(lp, leak_delta, pos_thres, neg_thres, base, kmax, f: int) -> None:
-    """K1's step 1 for frame f (see the module note), in place: the kernel
-    for CUDA tensors, `refractory_count_plain` for CPU ones.
+def refractory_scan_strips_plain(strips: Sequence[tuple]) -> List[Result]:
+    """K1 on row strips with each frame's K the largest count over all of
+    them, as a loop over frames: each strip's count, the maximum over the
+    strips, each strip's apply.  Takes and returns what
+    `refractory_scan_strips` does."""
+    F = _strips_frames(strips)
+    out = [dict(base=args[5].clone(), mem=args[6].clone(),
+                counts=torch.empty(args[0].shape, dtype=torch.int16, device=args[0].device),
+                i0=torch.empty(args[0].shape, dtype=torch.int16, device=args[0].device))
+           for args in strips]
+    lead = strips[0][0].device
+    Ks = torch.zeros(F, dtype=torch.int32, device=lead)
+    for f in range(F):
+        Ks[f] = torch.stack([
+            refractory_count_plain(lp, leak, pos, neg, o["base"], f).to(lead)
+            for (lp, leak, _, pos, neg, *_), o in zip(strips, out)]).amax()
+        for (lp, _, shot, pos, neg, _, _, dts, t_prevs, R), o in zip(strips, out):
+            refractory_apply_plain(lp, shot, pos, neg, o["base"], o["mem"], dts, t_prevs, R,
+                                   Ks[f].to(lp.device), f, o["counts"], o["i0"])
+    return [(o["base"], o["mem"], o["counts"], o["i0"], Ks.to(args[0].device))
+            for o, args in zip(out, strips)]
 
-    lp and leak_delta f32[F,H,W] (leak may be None); thresholds and base
-    f32[H,W]; kmax i32[F], its entry f zero before the call.
+
+# K1 on strips: the most threads and blocks of a strip's grid (the kernel's
+# kRefrMaxThreads and kMaxBlocks) and the most strips (kMaxStrips: one
+# exchange slot per lane of the warp that polls them)
+STRIP_MAX_THREADS = 1024
+STRIP_MAX_BLOCKS = 512
+MAX_STRIPS = 32
+# the default time limit of each wait in the kernel
+STRIP_TIMEOUT_S = 2.0
+
+
+@dataclass(frozen=True)
+class StripGrid:
+    """One strip's cooperative grid: blocks x threads, and the form (regs:
+    one pixel per thread with its state in registers, else the global-state
+    form)."""
+
+    blocks: int
+    threads: int
+    regs: bool
+
+
+def strips_plan(npixs: Sequence[int], devices: Sequence[int], sms: Dict[int, int],
+                occupancy: Callable[[int, bool, int], int]) -> Tuple[StripGrid, ...]:
+    """The grid of each strip of `npixs` pixels on device `devices[i]`.
+
+    sms: SMs per device; occupancy(device, regs, threads): blocks of that
+    form and width one SM holds.  The strips on a device share its SMs, so
+    that their grids are resident together: each takes `share` = SMs // n
+    of them (n its device's strips).  In the register form (when every
+    strip of the device fits one pixel per thread in `share` blocks) a
+    strip takes one block per SM of its share, fewer on a small strip, and
+    threads just enough for its pixels: the blocks together are at most
+    the SMs, each fits an SM alone, so all are resident at once.  Else
+    every strip of the device takes the global-state form, 1024 threads a
+    block and occupancy x share blocks.  A strip alone on its device gets
+    K1's grid.  Raises when a device cannot hold one block per strip.
     """
-    if not lp.is_cuda:
-        return refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, kmax, f)
-    F, H, W = lp.shape
-    _check_split(lp, leak_delta, None, (("pos_thres", pos_thres), ("neg_thres", neg_thres),
-                                        ("base", base)), f)
-    _check("kmax", kmax, torch.int32, (F,), lp.device)
-    fn = _split_fn("v2e_refractory_count", 6, 2)
-    with torch.cuda.device(lp.device):
-        err = fn(_ptr(lp), _ptr(leak_delta), _ptr(pos_thres), _ptr(neg_thres), _ptr(base),
-                 _ptr(kmax), f, H * W, torch.cuda.current_stream(lp.device).cuda_stream)
-    build.check(err, "refractory_count")
-    refractory_count.launches += 1
-
-
-def refractory_apply(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem, dts, t_prevs,
-                     refractory_period_s: float, K, f: int, counts, i0, kmax) -> None:
-    """K1's step 3 for frame f, fused with step 1 of frame f + 1 (see the
-    module note), in place: the kernel for CUDA tensors,
-    `refractory_apply_plain` for CPU ones.
-
-    K: the frame's largest count over every strip, a 0-d int32 tensor on
-    lp's device; shot_any u8[F,H,W] or None; mem f32[H,W]; dts and
-    t_prevs f32[F]; counts and i0 i16[F,H,W], frame f written; kmax i32[F],
-    entry f + 1 zero before the call.
-    """
-    if not lp.is_cuda:
-        return refractory_apply_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base, mem,
-                                      dts, t_prevs, refractory_period_s, K, f, counts, i0, kmax)
-    F, H, W = lp.shape
-    dev = lp.device
-    _check_split(lp, leak_delta, shot_any, (("pos_thres", pos_thres), ("neg_thres", neg_thres),
-                                            ("base", base), ("mem", mem)), f)
-    for name, t, dtype, shape in (("dts", dts, torch.float32, (F,)),
-                                  ("t_prevs", t_prevs, torch.float32, (F,)),
-                                  ("K", K, torch.int32, ()), ("kmax", kmax, torch.int32, (F,)),
-                                  ("counts", counts, torch.int16, (F, H, W)),
-                                  ("i0", i0, torch.int16, (F, H, W))):
-        _check(name, t, dtype, shape, dev)
-    fn = _split_fn("v2e_refractory_apply", 13, 3, with_r=True)
-    with torch.cuda.device(dev):
-        err = fn(_ptr(lp), _ptr(leak_delta), _ptr(shot_any), _ptr(pos_thres), _ptr(neg_thres),
-                 _ptr(base), _ptr(mem), _ptr(dts), _ptr(t_prevs), _ptr(K), _ptr(kmax),
-                 _ptr(counts), _ptr(i0), f, F, H * W, float(refractory_period_s),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "refractory_apply")
-    refractory_apply.launches += 1
+    if not 1 <= len(npixs) <= MAX_STRIPS or len(devices) != len(npixs):
+        raise ValueError(f"strips_plan: {len(npixs)} strips on {len(devices)} devices "
+                         f"(1 to {MAX_STRIPS})")
+    if min(npixs) < 1:
+        raise ValueError(f"strips_plan: an empty strip in {list(npixs)}")
+    count = {d: list(devices).count(d) for d in devices}
+    share = {d: min(sms[d] // n, STRIP_MAX_BLOCKS) for d, n in count.items()}
+    for d, n in count.items():
+        if share[d] < 1:
+            raise ValueError(f"strips_plan: device {d} has {sms[d]} SMs for {n} strips: it "
+                             "cannot hold one block per strip")
+    regs = {d: all(p <= share[d] * STRIP_MAX_THREADS
+                   for p, e in zip(npixs, devices) if e == d) for d in count}
+    grids = []
+    for p, d in zip(npixs, devices):
+        if regs[d]:
+            blocks = min(-(-p // 32), share[d])
+            threads = _up(-(-p // blocks), 32)
+        else:
+            blocks, threads = None, STRIP_MAX_THREADS
+        occ = occupancy(d, regs[d], threads)
+        if occ < 1:
+            raise ValueError(f"strips_plan: a block of {threads} threads does not fit an SM "
+                             f"of device {d}")
+        if blocks is None:
+            blocks = min(occ * share[d], STRIP_MAX_BLOCKS)
+        grids.append(StripGrid(blocks, threads, regs[d]))
+    return tuple(grids)
 
 
 @functools.cache
-def _split_fn(name: str, n_ptrs: int, n_ints: int, with_r: bool = False):
-    """The C entry point `name` of a K1 half: n_ptrs pointers, n_ints ints,
-    the refractory period (a float) for the apply, then the stream."""
-    fn = getattr(build.load("emulator_scan"), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_float] * with_r + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+def _strips_lib():
+    lib = build.load("emulator_scan")
+    lib.v2e_refractory_scan_strips.argtypes = [ctypes.c_void_p] * 13 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.v2e_refractory_strips_occupancy.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.v2e_host_device_ptr.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
+    for fn in (lib.v2e_refractory_scan_strips, lib.v2e_refractory_strips_occupancy,
+               lib.v2e_host_device_ptr):
+        fn.restype = ctypes.c_int
+    return lib
 
 
-# kernel launches made by each half (refractory_apply: one per frame and
-# strip; refractory_count: one per chunk and strip)
-refractory_count.launches = 0
-refractory_apply.launches = 0
+def _occupancy(device: int, regs: bool, threads: int) -> int:
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = _strips_lib().v2e_refractory_strips_occupancy(int(regs), threads, ctypes.byref(out))
+    build.check(err, "refractory_scan_strips occupancy")
+    return out.value
+
+
+@functools.cache
+def _device_grids(npixs: Tuple[int, ...], devices: Tuple[int, ...]) -> Tuple[StripGrid, ...]:
+    sms = {d: torch.cuda.get_device_properties(d).multi_processor_count for d in set(devices)}
+    return strips_plan(npixs, devices, sms, _occupancy)
+
+
+class _Exchange:
+    """The strips' exchange: 2 x n slots and the error word, 64-bit words of
+    pinned host memory (kept for the process: a kernel may still read them
+    when a call raises), each device's address of them, and the count of
+    frames tagged so far, which keeps every frame's tag unique across calls
+    (tags are 32-bit; 2^32 - 1 is the abort tag)."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.words = torch.zeros(2 * n + 1, dtype=torch.int64, pin_memory=True)
+        self.addr: Dict[int, int] = {}
+        self.tagged = 0
+
+    def address(self, device: int) -> int:
+        if device not in self.addr:
+            out = ctypes.c_void_p(0)
+            with torch.cuda.device(device):
+                err = _strips_lib().v2e_host_device_ptr(ctypes.c_void_p(self.words.data_ptr()),
+                                                        ctypes.byref(out))
+            if err or not out.value:
+                raise RuntimeError(f"refractory_scan_strips: the exchange's pinned memory has "
+                                   f"no address on cuda:{device} (CUDA error {err})")
+            self.addr[device] = out.value
+        return self.addr[device]
+
+    def take_tags(self, n_frames: int) -> int:
+        """tag0 of a call of n_frames frames, with the error word cleared.
+        Near 2^32 the count restarts at 0 and the slots are cleared: every
+        earlier call has waited for its kernels, so none reads them."""
+        if self.tagged + n_frames + 1 >= 0xFFFFFFFF:
+            self.words.zero_()
+            self.tagged = 0
+        self.words[2 * self.n] = 0
+        tag0 = self.tagged
+        self.tagged += n_frames
+        return tag0
+
+
+_EXCHANGES: Dict[int, _Exchange] = {}
+_STREAMS: Dict[Tuple[int, int], "torch.cuda.Stream"] = {}
+_ERRORS = {1: "a block of the strip did not reach the strip's barrier",
+           2: "a strip did not reach the exchange",
+           3: "block 0's K did not arrive"}
+
+
+def _check_strip(s: int, args, dev: torch.device) -> None:
+    lp, leak, shot, pos, neg, base, mem, dts, t_prevs, _ = args
+    F, h, w = lp.shape
+    _check(f"strip {s} lp", lp, torch.float32, (F, h, w), dev)
+    if leak is not None:
+        _check(f"strip {s} leak_delta", leak, torch.float32, (F, h, w), dev)
+    if shot is not None:
+        _check(f"strip {s} shot_any", shot, torch.uint8, (F, h, w), dev)
+    for name, t in (("pos_thres", pos), ("neg_thres", neg), ("base", base),
+                    ("timestamp_mem", mem)):
+        _check(f"strip {s} {name}", t, torch.float32, (h, w), dev)
+    _check(f"strip {s} dts", dts, torch.float32, (F,), dev)
+    _check(f"strip {s} t_prevs", t_prevs, torch.float32, (F,), dev)
+
+
+def refractory_scan_strips(strips: Sequence[tuple], timeout_s: float = STRIP_TIMEOUT_S,
+                           n_strips: Optional[int] = None) -> List[Result]:
+    """K1 on row strips (see the module note): the kernel for CUDA tensors,
+    `refractory_scan_strips_plain` for CPU ones.
+
+    strips: per strip, the arguments of `refractory_scan` (lp, leak_delta,
+    shot_any, pos_thres, neg_thres, base, timestamp_mem, dts, t_prevs,
+    refractory_period_s) for its rows, each strip on its device; the same
+    frames and refractory period in all.  Returns, per strip, what
+    `refractory_scan` returns for those rows, K the whole plane's.  Inputs
+    are not modified.  Every wait in the kernel gives up after timeout_s,
+    and the call then raises.  n_strips: the exchange's participants,
+    len(strips) by default; a larger number launches only the first
+    len(strips), and the others never arrive (the time limit's test).
+    """
+    F = _strips_frames(strips)
+    n = len(strips) if n_strips is None else n_strips
+    on_card = [args[0].is_cuda for args in strips]
+    if not any(on_card):
+        if n != len(strips):
+            raise ValueError("refractory_scan_strips: n_strips applies to the kernel only")
+        return refractory_scan_strips_plain(strips)
+    if not all(on_card):
+        raise ValueError("refractory_scan_strips: strips on CUDA and on the CPU at once")
+    devs = [args[0].device for args in strips]
+    for s, (args, dev) in enumerate(zip(strips, devs)):
+        _check_strip(s, args, dev)
+    if not len(strips) <= n <= MAX_STRIPS:
+        raise ValueError(f"refractory_scan_strips: {len(strips)} strips of {n} (at most "
+                         f"{MAX_STRIPS})")
+    npixs = [args[0].shape[1] * args[0].shape[2] for args in strips]
+    outs = []
+    for args, dev in zip(strips, devs):
+        lp, base, mem = args[0], args[5], args[6]
+        outs.append((base.clone(), mem.clone(),
+                     torch.empty(lp.shape, dtype=torch.int16, device=dev),
+                     torch.empty(lp.shape, dtype=torch.int16, device=dev)))
+    if F == 0:
+        return [o + (torch.zeros(0, dtype=torch.int32, device=d),) for o, d in zip(outs, devs)]
+    index = [d.index for d in devs]
+    grids = _device_grids(tuple(npixs), tuple(index))
+    x = _EXCHANGES.get(n)
+    if x is None:
+        x = _EXCHANGES[n] = _Exchange(n)
+    tag0 = x.take_tags(F)
+    # K, then the strip barrier's blocks + 1 64-bit slots, zeroed
+    kbufs = [torch.zeros(F + F % 2 + 2 * (g.blocks + 1), dtype=torch.int32, device=d)
+             for g, d in zip(grids, devs)]
+    shared = {i for i in index if index.count(i) > 1}
+    current = {i: torch.cuda.current_stream(i) for i in set(index)}
+    lib = _strips_lib()
+    launched, err = [], 0
+    for s, (args, g, i) in enumerate(zip(strips, grids, index)):
+        stream = current[i]
+        if i in shared:  # strips sharing a device run on streams of their own
+            if (i, s) not in _STREAMS:
+                _STREAMS[(i, s)] = torch.cuda.Stream(i)
+            stream = _STREAMS[(i, s)]
+            stream.wait_stream(current[i])
+        lp, leak, shot, pos, neg, _, _, dts, t_prevs, R = args
+        new_base, new_mem, counts, i0 = outs[s]
+        with torch.cuda.device(i):
+            err = lib.v2e_refractory_scan_strips(
+                _ptr(lp), _ptr(leak), _ptr(shot), _ptr(pos), _ptr(neg), _ptr(new_base),
+                _ptr(new_mem), _ptr(dts), _ptr(t_prevs), _ptr(kbufs[s]), _ptr(counts),
+                _ptr(i0), ctypes.c_void_p(x.address(i)), s, n, tag0,
+                int(timeout_s * 1e9), F, npixs[s], float(R), g.blocks, g.threads, int(g.regs),
+                ctypes.c_void_p(stream.cuda_stream))
+        if err:
+            break
+        refractory_scan_strips.launches += 1
+        launched.append(stream)
+    for i, stream in zip(index, launched):
+        if stream is not current[i]:
+            current[i].wait_stream(stream)
+    # the error word is read once every launched strip has finished
+    for stream in current.values():
+        stream.synchronize()
+    build.check(err, "refractory_scan_strips")
+    word = int(x.words[2 * n])
+    if word:
+        code, strip, frame = word >> 56, (word >> 32) & 0xFFFFFF, word & 0xFFFFFFFF
+        raise RuntimeError(f"refractory_scan_strips: {_ERRORS.get(code, code)} within "
+                           f"{timeout_s} s (strip {strip}, frame {frame})")
+    refractory_scan_strips.last_call = (tuple(tuple(a[0].shape) for a in strips), grids)
+    return [o + (k[:F],) for o, k in zip(outs, kbufs)]
+
+
+# kernel launches made by `refractory_scan_strips` (one per strip and
+# call), and the last call's ([F,h,W] per strip, StripGrid per strip)
+refractory_scan_strips.launches = 0
+refractory_scan_strips.last_call = None
 
 
 def scan_plain(

@@ -11,14 +11,16 @@ Pixel strips: the image rows split into S strips, one per device of the
 mesh's `spatial` axis.  Each strip runs the chunk program
 (`emulator.core.chunk_program`) on its rows: lin-log, the lowpass, leak
 and shot noise, then the sequential core (K2 per strip when the refractory
-period is 0; K1's two halves when it is positive; the SciDVS loop or the
-per-frame path otherwise).  The programs run in lock step, and where one
-asks for a value of the whole plane (a frame's largest count K, the CSDVS
-surround) `_drive` answers it on the lead device (the mesh's first):
-each strip's value is copied there (`.to`, ordered on the devices' current
-streams), combined, and copied back.  The chunk's outputs are gathered on
-the lead device in row order, so compaction, and with it the event stream,
-equals the single-device run's.  The random draws are the whole plane's,
+period is 0; when it is positive, K1 on strips, one launch per strip that
+exchanges each frame's K with the other strips in memory; the SciDVS loop
+or the per-frame path otherwise).  The programs run in lock step, and
+where one asks for a value of the whole plane `_drive` answers it: the
+refractory core's request with one call of `refractory_scan_strips` for
+all strips; SciDVS's per-frame K and the CSDVS surround on the lead device
+(the mesh's first), each strip's value copied there (`.to`, ordered on the
+devices' current streams), combined, and copied back.  The chunk's outputs
+are gathered on the lead device in row order, so compaction, and with it
+the event stream, equals the single-device run's.  The random draws are the whole plane's,
 made on the lead device's generator; a strip takes its rows of them.
 """
 from __future__ import annotations
@@ -33,12 +35,14 @@ from v2e_tpu_torch.device import resolve_device
 from v2e_tpu_torch.emulator.config import EmulatorConfig
 from v2e_tpu_torch.emulator.core import (
     MAX,
+    STRIPS,
     Draws,
     _update_csdvs,
     chunk_program,
     draw_chunk_noise,
 )
 from v2e_tpu_torch.emulator.state import EmulatorParams, EmulatorState
+from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan_strips
 
 
 class Mesh:
@@ -161,7 +165,8 @@ def shard_emulator_args(
 
 def _drive(cfg: EmulatorConfig, lead: torch.device, programs, bounds, devices):
     """Run one chunk program per strip in lock step, answering each request
-    across the strips on `lead`; returns the programs' results."""
+    across the strips (see the module note); returns the programs'
+    results."""
     answers = [None] * len(programs)
     while True:
         requests, results = [], []
@@ -170,11 +175,13 @@ def _drive(cfg: EmulatorConfig, lead: torch.device, programs, bounds, devices):
                 requests.append(program.send(answer))
             except StopIteration as stop:
                 results.append(stop.value)
+        if (results and requests) or len({r[0] for r in requests}) > 1:
+            raise RuntimeError("the strips' programs went out of step")
         if results:
-            if requests:
-                raise RuntimeError("the strips' programs went out of step")
             return results
-        if requests[0][0] == MAX:
+        if requests[0][0] == STRIPS:  # K1 on every strip, one launch each
+            answers = refractory_scan_strips([r[1] for r in requests])
+        elif requests[0][0] == MAX:
             m = torch.stack([r[1].to(lead) for r in requests]).amax(dim=0)
             answers = [m.to(d) for d in devices]
         else:  # SURROUND: the plane's surround, solved on the lead device
@@ -232,7 +239,7 @@ def emulate_chunk_sharded(
 
     params, state, frames [F,H,W] and times [F] are the whole plane's.
     draws: the chunk's random draws (`draw_chunk_noise`), by default drawn
-    from `generator` on the frames' device.  K1's halves run even when
+    from `generator` on the frames' device.  K1 on strips runs even when
     every strip lies on one device, and a mesh of one strip gives K1's own
     result.
     """
