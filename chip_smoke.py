@@ -47,10 +47,10 @@ Phases, each printed on its own line with its seconds:
           the port's readers equals the run's AEDAT-2 stream event for
           event (t in us, x, y, p) and its seek table's element counts sum
           to the run's events;
-     each with the kernels' launch counters set to 0 before and read after,
-     runs A and I with the native host library's call counts read the same
-     way (events, AEDAT-2 words and the DVS video's histogram through the
-     library, no numpy fallback),
+     each with the kernels' launch counters (v2e_tpu_torch.tracing) read
+     before and after, runs A and I with the native host library's call
+     counters read the same way (events, AEDAT-2 words and the DVS
+     video's histogram through the library, no numpy fallback),
      and its outputs checked (AEDAT-2 payload of 8 B per event, event times
      inside the input's span, non-empty videos in run A); then run A once
      more under torch.profiler for its device time (not counted); then
@@ -217,6 +217,39 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# each kernel wrapper's launch counter (v2e_tpu_torch/tracing.py)
+LAUNCH = {"refractory_scan": "launch.k1", "refractory_scan_strips": "launch.k1_strips",
+          "scan": "launch.k2", "bilinear_warp": "launch.k3", "bilinear_warp_vjp": "launch.k3_vjp",
+          "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5"}
+
+
+def launch_counts(names) -> dict:
+    """{wrapper name: the launches it has made in this process}."""
+    from v2e_tpu_torch import tracing
+
+    now = tracing.counters()
+    return {k: now.get(LAUNCH[k], 0) for k in names}
+
+
+def launches_since(before: dict) -> dict:
+    """The launches made since `launch_counts` gave `before`."""
+    now = launch_counts(before)
+    return {k: now[k] - before[k] for k in before}
+
+
+def host_calls_since(before: dict) -> dict:
+    """{(function, "native" | "numpy"): calls} of the host library since
+    tracing's counters read `before`."""
+    from v2e_tpu_torch import tracing
+
+    out = {}
+    for name, n in tracing.counters().items():
+        path, _, fn = name.partition(".")
+        if path in ("native", "numpy") and n > before.get(name, 0):
+            out[(fn, path)] = n - before.get(name, 0)
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -316,9 +349,9 @@ def check_k1(torch, F, dt, R, tag, plain_reps=2):
     dev = torch.device("cuda")
     args = refr_inputs(torch, dev, F, dt, R)
     mem = args[6]
-    before = refractory_scan.launches
+    before = launch_counts(["refractory_scan"])
     got = refractory_scan(*args)
-    per_call = refractory_scan.launches - before
+    per_call = launches_since(before)["refractory_scan"]
     grid = refractory_scan.last_call[1]
     want = refractory_scan_plain(*args)
     torch.cuda.synchronize()
@@ -342,7 +375,6 @@ def check_k1(torch, F, dt, R, tag, plain_reps=2):
     ms = time_ms(torch, lambda: refractory_scan(*args), reps=10)
     plain_ms = time_ms(torch, lambda: refractory_scan_plain(*args), reps=plain_reps,
                        warm=int(plain_reps > 1))
-    refractory_scan.launches = before  # comparison launches do not count
     npix = H * W
     nbytes = F * npix * (4 + 4 + 1 + 2 + 2) + npix * (4 * 4 + 2 * 4) + F * 12
     b_ms, b_by = bound(nbytes, F * npix * 40)
@@ -398,7 +430,6 @@ def phase_k3(torch, dev):
     flow = Fn.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=True).contiguous()
     u, v = flow[:, 0], flow[:, 1]
 
-    before = bilinear_warp.launches
     got = bilinear_warp(img, u, v, 32)
     want = warp_plain(img, u, v)
     torch.cuda.synchronize()
@@ -420,7 +451,6 @@ def phase_k3(torch, dev):
     ms = time_ms(torch, lambda: bilinear_warp(img, u, v, 32), reps=20)
     plain_ms = time_ms(torch, lambda: warp_plain(img, u, v), reps=5)
     library_ms = time_ms(torch, lib, reps=20)
-    bilinear_warp.launches = before  # comparison launches do not count
     b_ms, b_by = bound(N * h * w * 16, N * h * w * 30)
     log(f"[k3] bilinear warp N={N} {h}x{w}: max abs err {err:.3g} (grid_sample "
         f"{lib_err:.3g}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -468,8 +498,6 @@ def phase_k3_vjp(torch, dev):
     xs = torch.arange(w, device=dev)[None, None, :] + u - 0.5
     outside = float(((xs < 0) | (xs > w - 1)).float().mean())
 
-    before = bilinear_warp_vjp.launches
-    k3_before = bilinear_warp.launches
     k3_err = {}
     for reach, (uu, vv) in ((48, (u, v)), (480, (u * 10.0, v * 10.0))):
         k3_err[reach] = float((bilinear_warp(img, uu, vv) - warp_plain(img, uu, vv)).abs().max())
@@ -507,8 +535,6 @@ def phase_k3_vjp(torch, dev):
     library_ms = time_ms(torch, lib, reps=20)
     library_device_ms = time_device_ms(torch, lib, reps=20)
     k3_ms = time_device_ms(torch, lambda: bilinear_warp(img, u, v), reps=20)
-    bilinear_warp.launches = k3_before
-    bilinear_warp_vjp.launches = before  # comparison launches do not count
     # image, u, v, gout read, grad_u, grad_v written: 24 B per pixel; ~45 f32 ops
     b_ms, b_by = bound(N * h * w * 24, N * h * w * 45)
     log(f"[k3-vjp] K3 N={N} {h}x{w}: max abs err {k3_err[48]:.3g} with flows to +-48 px "
@@ -613,15 +639,13 @@ def phase_train(torch, np, dev, tmp, launches):
             "--crop", str(TRAIN_H), str(TRAIN_W), "--base", "32", "--log_every", "10",
             "--checkpoint_every", str(TRAIN_STEPS)]
     try:
-        warp_mod.bilinear_warp.launches = 0
-        warp_mod.bilinear_warp_vjp.launches = 0
+        before = launch_counts(["bilinear_warp", "bilinear_warp_vjp"])
         torch.cuda.synchronize()
         t = time.perf_counter()
         run = train_slomo.run(argv, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches["bilinear_warp"] = warp_mod.bilinear_warp.launches
-        launches["bilinear_warp_vjp"] = warp_mod.bilinear_warp_vjp.launches
+        launches.update(launches_since(before))
     finally:
         (warp_mod.warp_plain, warp_mod.warp_plain_vjp, backwarp_mod.warp_plain,
          train_slomo.TripletSampler.sample_batch, train_slomo.save_checkpoint) = saved
@@ -905,9 +929,9 @@ def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2, **inputs):
     from v2e_tpu_torch.ops.kernels.emulator_scan import GROUP, RING, scan, scan_plain
 
     args = k2_inputs(torch, dev, F, h, w, noisy, **inputs)
-    before = scan.launches
+    before = launch_counts(["scan"])
     got = scan(*args)
-    per_call = scan.launches - before
+    per_call = launches_since(before)["scan"]
     want = scan_plain(*args)
     torch.cuda.synchronize()
     n_bad = int((got[1] != want[1]).sum())
@@ -922,7 +946,6 @@ def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2, **inputs):
     ms = time_ms(torch, lambda: scan(*args), reps=20)
     dev_ms = time_device_ms(torch, lambda: scan(*args), reps=20)
     plain_ms = time_ms(torch, lambda: scan_plain(*args), reps=plain_reps)
-    scan.launches = before  # comparison launches do not count
     npix = h * w
     nbytes = F * npix * (4 + (4 + 1 if noisy else 0) + 2) + npix * 4 * 4
     b_ms, b_by = bound(nbytes, F * npix * 15)
@@ -1169,8 +1192,8 @@ def phase_cli(torch, np, tmp, counters):
     kernel}, {run: the last [N,H,W] (and max_base) each kernel of the
     run was launched with; for K5 every ((N,H,W,Ci), Co) with its
     launches}, and run A's materialize_sparse calls (their arguments)."""
-    from v2e_tpu_torch import cli, native
-    from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane
+    from v2e_tpu_torch import cli, native, tracing
+    from v2e_tpu_torch.ops.kernels.conv3 import shape_counts
 
     src = os.path.join(tmp, "frames")
     write_cli_input(np, src)
@@ -1204,10 +1227,8 @@ def phase_cli(torch, np, tmp, counters):
     for name, flags in runs.items():
         out = os.path.join(tmp, "out" + name)
         argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
-        for fn in counters.values():
-            fn.launches = 0
-        conv3x3_lane.shapes = {}
-        native.calls.clear()
+        before = launch_counts(counters)
+        counted = tracing.counters()
         torch.cuda.synchronize()
         t = time.perf_counter()
         if name == "A":
@@ -1217,14 +1238,17 @@ def phase_cli(torch, np, tmp, counters):
             stats = cli.run(argv, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches[name] = {k: fn.launches for k, fn in counters.items()}
-        host_calls = dict(native.calls)
+        launches[name] = launches_since(before)
+        host_calls = host_calls_since(counted)
         shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
         if name == "A":
             shapes[name]["refractory_scan"] = counters["refractory_scan"].last_call[0]
             shapes[name]["U"] = stats.upsampling[-1]
         if name == "C":
-            shapes[name]["conv3x3_lane"] = dict(conv3x3_lane.shapes)
+            k5 = shape_counts(tracing.counters())
+            k5_before = shape_counts(counted)
+            shapes[name]["conv3x3_lane"] = {k: n - k5_before.get(k, 0) for k, n in k5.items()
+                                            if n > k5_before.get(k, 0)}
         walls[name] = wall
         rtfs[name] = stats.realtime_factor
         events[name] = stats.num_events
@@ -1618,8 +1642,7 @@ def phase_resume(torch, np, dev, counters):
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, kw in (("refractory", {}), ("scidvs", {"scidvs": True})):
-            for fn in counters.values():
-                fn.launches = 0
+            before = launch_counts(counters)
             ems = []
             for _ in range(2):
                 em = EventEmulator(seed=3, device=dev, **kw)
@@ -1634,7 +1657,7 @@ def phase_resume(torch, np, dev, counters):
             resumed.load_state(ckpt)
             got = resumed.generate_events_batch(src[n1:], times[n1:])
             torch.cuda.synchronize()
-            launches = {k: fn.launches for k, fn in counters.items()}
+            launches = launches_since(before)
             same = (got is not None and want is not None and got.shape == want.shape
                     and np.array_equal(got, want)
                     and (resumed.num_events_on, resumed.num_events_off)
@@ -1715,7 +1738,6 @@ def phase_k5(torch, dev, shapes, launches):
         raise AssertionError(f"run C launched K5 at {sorted(shapes)}, not at up4 and up5")
     g = torch.Generator(device=dev).manual_seed(7)
     torch.backends.cudnn.allow_tf32 = False
-    before = conv3x3_lane.launches
     rows, err, tot = [], 0.0, {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0,
                                "flops": 0.0}
     for (n, h, w, ci), co in sorted(picked.values(), key=lambda v: -v[0][3]):
@@ -1764,7 +1786,6 @@ def phase_k5(torch, dev, shapes, launches):
                      ("bytes", nbytes), ("flops", flops)):
             tot[k] += v
     torch.backends.cudnn.allow_tf32 = True
-    conv3x3_lane.launches = before  # comparison launches do not count
     b_ms, b_by = bound(tot["bytes"], tot["flops"], PEAK_BF16_OPS_S)
     log(f"[k5] {launches} launches in run C; both shapes together (one call each): "
         f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
@@ -1942,8 +1963,7 @@ def phase_synthetic_cli(torch, np, tmp, counters):
 
     for name, flags in runs.items():
         out = os.path.join(tmp, "syn" + name)
-        for fn in counters.values():
-            fn.launches = 0
+        before = launch_counts(counters)
         shapes[name] = {k: Counter() for k in real}
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1956,7 +1976,7 @@ def phase_synthetic_cli(torch, np, tmp, counters):
                 setattr(core, k, fn)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        launches[name] = launches_since(before)
         stats_by[name] = stats
         chunks = -(-stats.n_frames // 64)
         others = {k: v for k, v in launches[name].items() if k != want[name] and v}
@@ -2379,12 +2399,11 @@ def phase_pixel(torch, np, dev):
             return em
 
         ev1, ms1 = run_stream(torch, np, emulator(None), frames, times, PIXEL_F, PIXEL_CHUNKS)
-        for c in counters.values():
-            c.launches = 0
+        before = launch_counts(counters)
         with PlainScansRefused():
             ev2, ms2 = run_stream(torch, np, emulator(Mesh([[dev] * S], ("data", "spatial"))),
                                   frames, times, PIXEL_F, PIXEL_CHUNKS)
-        launches = {k: c.launches for k, c in counters.items()}
+        launches = launches_since(before)
         tag = f"{preset or 'R=0.5ms'} {w}x{h} S={S}"
         if not np.array_equal(ev1, ev2):
             raise AssertionError(f"[pixel] {tag}: {len(ev2)} events on strips, {len(ev1)} on "
@@ -2446,7 +2465,6 @@ def phase_k1_strips(torch, dev, launches):
     S, F = 3, PIXEL_F
     args = refr_inputs(torch, dev, F, 1.0 / (SRC_FPS * PIXEL_U), 0.0005)
     strips, one = strip_rows(torch, args, S), strip_rows(torch, args, 1)
-    before = es.refractory_scan_strips.launches
     got = es.refractory_scan_strips(strips)
     want = es.refractory_scan_strips_plain(strips)
     whole = es.refractory_scan(*args)
@@ -2473,7 +2491,6 @@ def phase_k1_strips(torch, dev, launches):
                                             "refr_strips", 10),
               "k1": kernel_device_ms(torch, lambda: es.refractory_scan(*args),
                                      "refr_persistent", 10)}
-    es.refractory_scan_strips.launches = before
     # K1's bound: each input read once, each output written once (13 B per
     # pixel-frame, the state planes once)
     b_chunk = bound(F * H * W * 13 + H * W * 24, F * H * W * 40)
@@ -2536,12 +2553,12 @@ def phase_segment(torch, np, dev):
         kw = dict(CLI_EMULATOR, leak_rate_hz=0.0, refractory_period_s=R, seed=42,
                   shuffle_events_within_iteration=False, device=dev)
         ev1, ms1 = run_stream(torch, np, EventEmulator(**kw), frames, times, F, SEG_CHUNKS)
-        kernel.launches = 0
+        before = launch_counts([kernel.__name__])
         seg = EventEmulator(mesh=make_segment_mesh(SEG_S, card), parallel_mode="segment",
                             segment_warmup=SEG_W, **kw)
         with PlainScansRefused():
             ev2, ms2 = run_stream(torch, np, seg, frames, times, F, SEG_CHUNKS)
-        launches = kernel.launches
+        launches = launches_since(before)[kernel.__name__]
         delta = int(np.abs(pixel_sums(np, ev1, H, W) - pixel_sums(np, ev2, H, W)).max())
         rate = (len(ev2) - len(ev1)) / len(ev1)
         tag = f"R={R * 1e3:g}ms"
@@ -2596,11 +2613,10 @@ def ddp_rank(rank, world, port, out, device, shape):
             train.create_train_state(seed=0, base=shape[3], device=dev))
         step = train.make_train_step()
         batch = train.shard_batch(ddp_batch(np, shape))
-        warp_mod.bilinear_warp.launches = warp_mod.bilinear_warp_vjp.launches = 0
+        before = launch_counts(["bilinear_warp", "bilinear_warp_vjp"])
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
-        result = {"launches": [warp_mod.bilinear_warp.launches,
-                               warp_mod.bilinear_warp_vjp.launches],
+        result = {"launches": list(launches_since(before).values()),
                   "backend": dist.get_backend()}
         if rank == 0:
             params = [p for net in (state.flow_net, state.interp_net)
@@ -2800,15 +2816,13 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[fused] setup + staged + warm chunks {time.perf_counter() - t:.2f} s")
 
-    refractory_scan.launches = 0
-    bilinear_warp.launches = 0
+    before = launch_counts(["refractory_scan", "bilinear_warp"])
     torch.cuda.synchronize()
     t = time.perf_counter()
     split = []
     runs = run_chunks(np, fc, em, src, range(2, 2 + N_MEAS), B, U, split)
     wall = time.perf_counter() - t
-    k1["launches"] = refractory_scan.launches
-    k3["launches"] = bilinear_warp.launches
+    k1["launches"], k3["launches"] = launches_since(before).values()
     if len(runs) != N_MEAS or not k1["launches"] or not k3["launches"]:
         raise AssertionError(
             f"main path ran {len(runs)} chunks, K1 launches {k1['launches']}, "

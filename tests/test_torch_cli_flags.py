@@ -4,6 +4,7 @@ synthetic-input flags it runs, and its import boundary (no jax, no
 v2e_tpu).  test_torch_cli.py
 holds the CLI against the JAX package's.
 """
+import json
 import logging
 import os
 import subprocess
@@ -166,6 +167,18 @@ def test_profile_writes_a_trace(frames_dir, tmp_path):
                      "--disable_slomo", "--skip_video_output", "--profile"], device="cpu")
     assert stats.n_frames == 4
     assert os.path.getsize(out / "torch-trace" / "trace.json") > 0
+    # the port's spans and counters beside the trace (v2e_tpu_torch/tracing.py)
+    with open(out / "torch-trace" / "spans.json") as f:
+        spans = json.load(f)
+    assert set(spans["clock"]) == {"perf_counter_ns", "time_ns"}
+    names = [s["name"] for s in spans["spans"]]
+    for root in ("submit", "collect.fetch", "collect.finalize"):
+        assert root in names, root
+    events = sum(s["counts"].get("events", 0) for s in spans["spans"]
+                 if s["name"] == "collect.finalize")
+    assert events == stats.num_events
+    assert all(s["end_ns"] >= s["start_ns"] for s in spans["spans"])
+    assert isinstance(spans["counters"], dict)
 
 
 def test_profile_wraps_the_synthetic_run(tmp_path):

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 from v2e_tpu.models.unet import _upconv_fold_block
 from v2e_tpu.ops.pallas.conv3 import conv3x3_lane as jax_conv3x3_lane
 from v2e_tpu_torch.models.unet import upconv_fold, upfold_kernel
-from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane, conv3x3_lane_plain
+from v2e_tpu_torch import tracing
+from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane, conv3x3_lane_plain, shape_counts
 
 
 def bf16_ulp(v):
@@ -130,14 +131,14 @@ def test_plain_without_activation(dtype):
 def test_wrapper_runs_the_plain_version_on_the_cpu():
     x, wt, b = inputs(2, 8, 12, 16, 32, seed=5)
     args = (torch.from_numpy(x).bfloat16(), torch.from_numpy(wt), torch.from_numpy(b))
-    n0 = conv3x3_lane.launches
-    shapes = dict(conv3x3_lane.shapes)
+    n0 = tracing.counters().get("launch.k5", 0)
+    shapes = shape_counts(tracing.counters())
     got = conv3x3_lane(*args)
     assert torch.equal(got, conv3x3_lane_plain(*args))
-    assert conv3x3_lane.launches == n0  # launches count the CUDA kernel only
+    assert tracing.counters().get("launch.k5", 0) == n0  # launches count the CUDA kernel only
     key = ((2, 8, 12, 16), 32)
     assert conv3x3_lane.last_call == key
-    assert conv3x3_lane.shapes[key] == shapes.get(key, 0) + 1
+    assert shape_counts(tracing.counters())[key] == shapes.get(key, 0) + 1
 
 
 @pytest.mark.parametrize(

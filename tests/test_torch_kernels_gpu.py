@@ -29,6 +29,7 @@ with K1 and with K2.
 import pytest
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels.conv3 import (
     conv3x3_lane,
     conv3x3_lane_plain,
@@ -50,6 +51,16 @@ from v2e_tpu_torch.ops.kernels.warp import (
 from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled, warp_tiled_plain
 
 pytestmark = pytest.mark.gpu
+
+# each wrapper's launch counter (v2e_tpu_torch/tracing.py)
+LAUNCH = {"refractory_scan": "launch.k1", "refractory_scan_strips": "launch.k1_strips",
+          "scan": "launch.k2", "bilinear_warp": "launch.k3", "bilinear_warp_vjp": "launch.k3_vjp",
+          "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5"}
+
+
+def n_launches(kernel) -> int:
+    """The kernel launches `kernel`'s wrapper has made in this process."""
+    return tracing.counters().get(LAUNCH[kernel.__name__], 0)
 
 
 @pytest.fixture
@@ -81,10 +92,10 @@ def refractory_inputs(cuda, F, H, W, R, seed=0):
 ])
 def test_refractory_scan_kernel_matches_plain(cuda, F, H, W, R):
     args = refractory_inputs(cuda, F, H, W, R)
-    n0 = refractory_scan.launches
+    n0 = n_launches(refractory_scan)
     got = refractory_scan(*args)
     want = refractory_scan_plain(*args)
-    assert refractory_scan.launches == n0 + 1
+    assert n_launches(refractory_scan) == n0 + 1
     (blocks, threads, regpix) = refractory_scan.last_call[1]
     assert refractory_scan.last_call[0] == (F, H, W)
     assert regpix == 0 or H * W <= blocks * threads * regpix
@@ -112,10 +123,10 @@ def test_scan_kernel_matches_plain(cuda, noise):
     shot = ((torch.rand((F, H, W), generator=g, device=cuda) < 0.01).to(torch.uint8)
             if noise else None)
     args = (lp, leak, shot, pos, neg, base)
-    n0 = scan.launches
+    n0 = n_launches(scan)
     got = scan(*args)
     want = scan_plain(*args)
-    assert scan.launches == n0 + 1
+    assert n_launches(scan) == n0 + 1
     assert torch.equal(got[1], want[1])
     assert int(got[1].abs().sum()) > 1000
     assert float((got[0] - want[0]).abs().max()) <= 1e-6
@@ -144,9 +155,9 @@ def unaligned(t, elems):
 
 
 def assert_scan_matches_plain(args):
-    n0 = scan.launches
+    n0 = n_launches(scan)
     got = scan(*args)
-    assert scan.launches == n0 + 1
+    assert n_launches(scan) == n0 + 1
     want = scan_plain(*args)
     assert torch.equal(got[1], want[1])
     assert float((got[0] - want[0]).abs().max()) <= 1e-6
@@ -206,10 +217,10 @@ def test_scan_kernel_raises_and_never_falls_back(cuda, monkeypatch, refusal):
 
     monkeypatch.setattr(emulator_scan, "scan_plain", refuse)
     monkeypatch.setattr(emulator_scan, "_device_plan", lambda *a: (plan, bad, tiles))
-    n0 = scan.launches
+    n0 = n_launches(scan)
     with pytest.raises(RuntimeError):
         scan(*args)
-    assert scan.launches == n0
+    assert n_launches(scan) == n0
     monkeypatch.undo()
     assert_scan_matches_plain(args)  # the refusal left no fault behind
 
@@ -222,9 +233,9 @@ def test_warp_tiled_kernel_matches_plain(cuda, max_base):
     mean = (torch.rand((N, 2, 1, 1), generator=g, device=cuda) * 87 + 33) * (max_base // 128)
     flow = mean + 6 * torch.rand((N, 2, H, W), generator=g, device=cuda) - 3
     flow[1] += 200 * torch.rand((2, H, W), generator=g, device=cuda) - 100  # clamps act
-    n0 = warp_tiled.launches
+    n0 = n_launches(warp_tiled)
     got = warp_tiled(img, flow[:, 0], flow[:, 1], max_base)
-    assert warp_tiled.launches == n0 + 1
+    assert n_launches(warp_tiled) == n0 + 1
     want = warp_tiled_plain(img, flow[:, 0], flow[:, 1], max_base)
     assert float((got - want).abs().max()) <= 1e-5
 
@@ -233,9 +244,9 @@ def test_bilinear_warp_kernel_matches_plain(cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     img = torch.rand((5, 40, 70), generator=g, device=cuda)
     flow = 40 * torch.rand((5, 2, 40, 70), generator=g, device=cuda) - 20
-    n0 = bilinear_warp.launches
+    n0 = n_launches(bilinear_warp)
     got = bilinear_warp(img, flow[:, 0], flow[:, 1], 32)
-    assert bilinear_warp.launches == n0 + 1
+    assert n_launches(bilinear_warp) == n0 + 1
     assert float((got - warp_plain(img, flow[:, 0], flow[:, 1])).abs().max()) <= 1e-5
 
 
@@ -245,9 +256,9 @@ def test_bilinear_warp_kernel_at_training_shape(cuda, reach):
     the two channels of one flow tensor, with flows beyond the inference
     window (random initial weights give unbounded flows)."""
     img, flow, _ = vjp_inputs(cuda, 8, 256, 320, reach, seed=3)
-    n0 = bilinear_warp.launches
+    n0 = n_launches(bilinear_warp)
     got = bilinear_warp(img, flow[:, 0], flow[:, 1])
-    assert bilinear_warp.launches == n0 + 1
+    assert n_launches(bilinear_warp) == n0 + 1
     assert float((got - warp_plain(img, flow[:, 0], flow[:, 1])).abs().max()) <= 1e-5
 
 
@@ -266,9 +277,9 @@ def vjp_inputs(cuda, N, H, W, reach, seed=2):
 def test_bilinear_warp_vjp_kernel_matches_plain(cuda, N, H, W, reach, need_img):
     img, flow, gout = vjp_inputs(cuda, N, H, W, reach)
     flow = torch.cat([flow, flow], dim=1)[:, 1:3]  # a view: 4 planes between images
-    n0 = bilinear_warp_vjp.launches
+    n0 = n_launches(bilinear_warp_vjp)
     gf, gi = bilinear_warp_vjp(img, flow[:, 0], flow[:, 1], gout, need_img)
-    assert bilinear_warp_vjp.launches == n0 + 1
+    assert n_launches(bilinear_warp_vjp) == n0 + 1
     wf, wi = warp_plain_vjp(img, flow[:, 0], flow[:, 1], gout, need_img)
     assert float((gf - wf).abs().max()) <= 1e-6
     if need_img:
@@ -280,10 +291,10 @@ def test_bilinear_warp_vjp_kernel_matches_plain(cuda, N, H, W, reach, need_img):
 def test_bilinear_warp_fn_on_card_launches_both_kernels(cuda):
     img, flow, gout = vjp_inputs(cuda, 4, 64, 96, 30.0, seed=5)
     flow.requires_grad_()
-    n0, m0 = bilinear_warp.launches, bilinear_warp_vjp.launches
+    n0, m0 = n_launches(bilinear_warp), n_launches(bilinear_warp_vjp)
     out = BilinearWarpFn.apply(img, flow)
     out.backward(gout)
-    assert (bilinear_warp.launches, bilinear_warp_vjp.launches) == (n0 + 1, m0 + 1)
+    assert (n_launches(bilinear_warp), n_launches(bilinear_warp_vjp)) == (n0 + 1, m0 + 1)
     want, _ = warp_plain_vjp(img, flow[:, 0].detach(), flow[:, 1].detach(), gout)
     assert float((flow.grad - want).abs().max()) <= 1e-6
 
@@ -309,12 +320,12 @@ def test_train_step_on_card_matches_cpu(no_tf32, monkeypatch, cudnn, grad_tol):
     for dev in ("cuda", "cpu"):
         state = train.create_train_state(params=params, device=dev)
         b = train.batch_to(batch, torch.device(dev))
-        n0 = bilinear_warp_vjp.launches
+        n0 = n_launches(bilinear_warp_vjp)
         loss, metrics = train.slomo_loss(state.flow_net, state.interp_net,
                                          b["I0"], b["I1"], b["It"], b["t"])
         loss.backward()
         if dev == "cuda":
-            assert bilinear_warp_vjp.launches == n0 + 6
+            assert n_launches(bilinear_warp_vjp) == n0 + 6
         out[dev] = ({k: float(v.detach()) for k, v in metrics.items()},
                     [p.grad.cpu() for net in (state.flow_net, state.interp_net)
                      for p in net.parameters()])
@@ -362,9 +373,9 @@ def test_conv3x3_kernel_matches_plain(no_tf32, dtype, n, h, w, ci, co):
     wt = torch.randn((co, ci, 3, 3), generator=g, device=no_tf32) / (9 * ci) ** 0.5
     b = 0.1 * torch.randn((co,), generator=g, device=no_tf32)
     for slope in (0.1, None):
-        n0 = conv3x3_lane.launches
+        n0 = n_launches(conv3x3_lane)
         got = conv3x3_lane(x, wt, b, slope)
-        assert conv3x3_lane.launches == n0 + 1
+        assert n_launches(conv3x3_lane) == n0 + 1
         want = conv3x3_lane_plain(x, wt, b, slope)
         assert got.dtype == dt and got.shape == want.shape == (n, h, w, co)
         if dtype == "float32":
@@ -400,9 +411,9 @@ def conv_inputs(cuda, n, h, w, ci, co, seed=6):
 ])
 def test_conv3x3_bf16_kernel_at_more_shapes(no_tf32, n, h, w, ci, co):
     x, wt, b = conv_inputs(no_tf32, n, h, w, ci, co)
-    n0 = conv3x3_lane.launches
+    n0 = n_launches(conv3x3_lane)
     got = conv3x3_lane(x, wt, b)
-    assert conv3x3_lane.launches == n0 + 1
+    assert n_launches(conv3x3_lane) == n0 + 1
     assert_bf16_close(got, conv3x3_lane_plain(x, wt, b))
 
 
@@ -507,13 +518,13 @@ def test_variant_paths_on_card_match_cpu(cuda, name):
 
     cfg = variant_configs()[name]
     params, state, frames, times, draws = variant_inputs(cfg)
-    launches = (refractory_scan.launches, scan.launches)
+    launches = (n_launches(refractory_scan), n_launches(scan))
     (gn, go), (cn, co) = (emulate_chunk_apply(
         cfg, moved(params, d), moved(state, d), frames.to(d), times.to(d),
         {k: (None if v is None else v.to(d)) for k, v in draws.items()})
         for d in (cuda, torch.device("cpu")))
     torch.cuda.synchronize()
-    assert (refractory_scan.launches, scan.launches) == launches
+    assert (n_launches(refractory_scan), n_launches(scan)) == launches
     assert int(co["ev_count"].abs().sum()) > 1000
     for key in ("ev_count", "i0", "K", "stride"):
         assert float((go[key].cpu() != co[key]).float().mean()) <= 1e-3, key
@@ -551,7 +562,7 @@ def test_resume_on_card_equals_continuous_run(cuda, tmp_path, variant):
         em.cfg = dataclasses.replace(em.cfg, refractory_period_s=5e-4)
         ems.append(em)
     cont, resumed = ems
-    k1 = refractory_scan.launches
+    k1 = n_launches(refractory_scan)
     cont.generate_events_batch(src[:17], times[:17])
     cont.save_state(str(tmp_path / "c.npz"))
     want = cont.generate_events_batch(src[17:], times[17:])
@@ -564,7 +575,7 @@ def test_resume_on_card_equals_continuous_run(cuda, tmp_path, variant):
     for f in dataclasses.fields(cont.state):
         if getattr(cont.state, f.name) is not None:
             assert torch.equal(getattr(resumed.state, f.name), getattr(cont.state, f.name))
-    assert (refractory_scan.launches > k1) == (not variant)
+    assert (n_launches(refractory_scan) > k1) == (not variant)
 
 
 # the synthetic renderers at the sizes of test_torch_synthetic.py:
@@ -635,14 +646,14 @@ def test_synthetic_cli_device_path_on_card_matches_cpu(cuda, tmp_path, refractor
              "--sigma_thres", "0", "--leak_rate_hz", "0", "--shot_noise_rate_hz", "0",
              "--cutoff_hz", "0", "--refractory_period", refractory]
     kernel = k1 if refractory != "0" else k2
-    before = kernel.launches
+    before = n_launches(kernel)
     events = {}
     for device in ("cuda", "cpu"):
         out = tmp_path / device
         stats = cli.run(flags + ["-o", str(out)], device=device)
         assert stats.n_frames == 38
         events[device] = np.loadtxt(out / "v2e.txt", comments="#").reshape(-1, 4)
-    assert kernel.launches > before
+    assert n_launches(kernel) > before
     assert len(events["cpu"]) > 300
     np.testing.assert_array_equal(events["cuda"], events["cpu"])
 
@@ -681,10 +692,10 @@ def test_refractory_strips_match_plain_and_k1(cuda, F, H, W, S):
     args = refractory_inputs(cuda, F, H, W, 0.0005)
     strips = strip_args(args, S)
     whole = refractory_scan(*args)
-    n0 = refractory_scan_strips.launches
+    n0 = n_launches(refractory_scan_strips)
     got = refractory_scan_strips(strips)
     torch.cuda.synchronize()
-    assert refractory_scan_strips.launches == n0 + S
+    assert n_launches(refractory_scan_strips) == n0 + S
     want = refractory_scan_strips_plain(strips)
     grids = refractory_scan_strips.last_call[1]
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
@@ -722,11 +733,12 @@ def test_strips_chunk_takes_one_launch_per_strip_and_no_plain(cuda, monkeypatch)
     for name in ("refractory_scan_plain", "refractory_scan_strips_plain",
                  "refractory_count_plain", "refractory_apply_plain", "scan_plain"):
         monkeypatch.setattr(es, name, refuse)
-    n0, k1 = es.refractory_scan_strips.launches, es.refractory_scan.launches
+    n0, k1 = n_launches(es.refractory_scan_strips), n_launches(es.refractory_scan)
     s2, o2 = emulate_chunk_sharded(cfg, card_strips(cuda, 3), params, state, frames, times,
                                    draws=draws)
     torch.cuda.synchronize()
-    assert (es.refractory_scan_strips.launches - n0, es.refractory_scan.launches - k1) == (3, 0)
+    assert (n_launches(es.refractory_scan_strips) - n0,
+            n_launches(es.refractory_scan) - k1) == (3, 0)
     for k in o1:
         assert torch.equal(o1[k], o2[k]), k
     assert torch.equal(s1.base_log_frame, s2.base_log_frame)
@@ -796,7 +808,7 @@ def test_segments_on_card_run_k1_once_each(cuda):
     params, state, frames, times, draws = variant_inputs(cfg, F=64)
     outs = []
     for d in (cuda, torch.device("cpu")):
-        launches = refractory_scan.launches
+        launches = n_launches(refractory_scan)
         _, o = emulate_chunk_segmented(
             cfg, moved(params, d), moved(state, d), frames.to(d), times.to(d),
             frames[0].to(d).expand(9, *frames.shape[1:]), torch.zeros(9, device=d), 4, 8,
@@ -805,6 +817,6 @@ def test_segments_on_card_run_k1_once_each(cuda):
         outs.append(o)
         if d.type == "cuda":
             torch.cuda.synchronize()
-            assert refractory_scan.launches - launches == 4
+            assert n_launches(refractory_scan) - launches == 4
     assert int(outs[1]["ev_count"].abs().sum()) > 1000
     assert float((outs[0]["ev_count"].cpu() != outs[1]["ev_count"]).float().mean()) <= 1e-3

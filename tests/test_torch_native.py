@@ -18,7 +18,7 @@ import v2e_tpu.emulator.events as jax_events
 import v2e_tpu.io.aedat2 as jax_aedat2
 import v2e_tpu.native as jax_native
 import v2e_tpu.render.renderer as jax_renderer
-from v2e_tpu_torch import native
+from v2e_tpu_torch import native, tracing
 from v2e_tpu_torch.emulator import events
 from v2e_tpu_torch.io.aedat2 import AEDat2Output, pack_aedat2_numpy
 from v2e_tpu_torch.render.renderer import accumulate_histogram_numpy, area_count_scan_numpy
@@ -151,10 +151,10 @@ def case_materialize_frame(port, ref, no_jax_lib):
     assert ulps(ev[:, 0].copy(), ev_r[:, 0].copy()) <= 1
     # the public function takes the native path here, the dense frames of a
     # chunk through materialize_events too
-    before = native.calls[("materialize_frame", "native")]
+    before = tracing.counters().get("native.materialize_frame", 0)
     ev_p, _ = events.materialize_frame(count, i0, stride, K, t_prev, t_frame, on, off)
     np.testing.assert_array_equal(ev_p, ev)
-    assert native.calls[("materialize_frame", "native")] == before + 1
+    assert tracing.counters()["native.materialize_frame"] == before + 1
 
 
 def case_count_frame_events(port, ref, no_jax_lib):
@@ -264,7 +264,7 @@ def test_callers_take_the_native_path(libs, tmp_path):
     """The sparse materialization, the AEDAT-2 sink and the renderer's
     histogram go through the library and count their calls."""
     idx, count, i0, shot, stride, K, t_prev, t_frame = sparse_chunk(seed=9)
-    before = dict(native.calls)
+    before = tracing.counters()
     ev, _, _ = events.materialize_events_sparse(idx, count, i0, shot, stride, K, t_prev,
                                                 t_frame, H, W, T_ORIGIN)
     sink = AEDat2Output(str(tmp_path / "e.aedat"), 346, 260)
@@ -275,7 +275,7 @@ def test_callers_take_the_native_path(libs, tmp_path):
 
     accumulate_histogram(frame, ev, 3.0)
     for name in ("materialize_sparse", "pack_aedat2", "hist2d_accumulate"):
-        assert native.calls[(name, "native")] == before.get((name, "native"), 0) + 1, name
+        assert tracing.counters()[f"native.{name}"] == before.get(f"native.{name}", 0) + 1, name
 
 
 def test_library_builds_into_the_port(libs):

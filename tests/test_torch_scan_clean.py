@@ -22,10 +22,11 @@ from v2e_tpu.emulator.core import emulate_chunk
 from v2e_tpu.emulator.state import init_state
 from v2e_tpu.ops.core import lin_log
 from v2e_tpu.ops.pallas.emulator_scan import F_SEG, emulator_scan_pallas
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.emulator.config import EmulatorConfig
 from v2e_tpu_torch.emulator.core import emulate_chunk_apply
 from v2e_tpu_torch.emulator.state import from_jax_emulator
-from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
+from v2e_tpu_torch.ops.kernels.emulator_scan import scan
 
 ATOL = 1e-6
 F, H, W = 140, 24, 40
@@ -107,10 +108,12 @@ def test_chunk_at_zero_refractory_runs_k2(noise):
         # uniforms that reproduce the JAX run's shot maps exactly
         on, off = np.asarray(outs["shot_on"]), np.asarray(outs["shot_off"])
         draws["shot"] = torch.from_numpy(np.where(on, 1.0, np.where(off, 0.0, 0.5)).astype(np.float32))
-    k1_before, k2_before = refractory_scan.launches, scan.launches
+    before = tracing.counters()
     new, got = emulate_chunk_apply(cfg, params, state, torch.from_numpy(frames),
                                    torch.from_numpy(times), draws)
-    assert (refractory_scan.launches, scan.launches) == (k1_before, k2_before)  # CPU: plain
+    after = tracing.counters()
+    for k in ("launch.k1", "launch.k2"):  # CPU: plain
+        assert after.get(k, 0) == before.get(k, 0), k
     np.testing.assert_array_equal(got["ev_count"].numpy(), np.asarray(outs["ev_count"]))
     for key in ("i0", "stride", "K", "num_on", "num_off"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(outs[key]), err_msg=key)

@@ -25,8 +25,8 @@ import torch
 
 from v2e_tpu.models.backwarp import backwarp as jax_backwarp
 from v2e_tpu.ops.pallas.warp_v2 import bilinear_warp_tiled
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.models.backwarp import warp, warp_planar
-from v2e_tpu_torch.ops.kernels.warp import bilinear_warp
 from v2e_tpu_torch.ops.kernels.warp_tiled import (
     max_base_for,
     tile_bases,
@@ -193,9 +193,11 @@ def test_warp_dispatch_by_window(monkeypatch):
 def test_wrappers_take_the_plain_version_on_cpu():
     rng = np.random.default_rng(0)
     img, flow, max_base = case_large_base(rng)
-    n_k3, n_k4 = bilinear_warp.launches, warp_tiled.launches
+    before = tracing.counters()
     port_tiled(img, flow, max_base)
-    assert (bilinear_warp.launches, warp_tiled.launches) == (n_k3, n_k4)
+    after = tracing.counters()
+    for k in ("launch.k3", "launch.k4"):
+        assert after.get(k, 0) == before.get(k, 0), k
     with pytest.raises(ValueError):
         warp_tiled(torch.from_numpy(img), torch.from_numpy(flow[:, 0]),
                    torch.from_numpy(flow[:, 1]), 100)

@@ -252,7 +252,18 @@ def v2e_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                             help="skip the within-iteration random event shuffle")
     perf_group.add_argument("--profile", action="store_true",
                             help="capture a torch.profiler trace of the "
-                                 "conversion into <output_folder>/torch-trace")
+                                 "conversion into <output_folder>/torch-trace "
+                                 "(trace.json), and the program's spans and "
+                                 "counters into spans.json beside it: per chunk "
+                                 "submit (submit.upload, slomo.resize.upload, "
+                                 "slomo.flow_unet, "
+                                 "slomo.refine_unet, emulator.precore, "
+                                 "emulator.compact, emulator.compact.sync), "
+                                 "collect.fetch (collect.fetch.wait), "
+                                 "collect.finalize (collect.materialize, "
+                                 "collect.write) and pipeline.drain; device "
+                                 "times from CUDA events "
+                                 "(v2e_tpu_torch/tracing.py)")
     perf_group.add_argument("--compaction_capacity", type=int, default=None,
                             help="sparse-compaction capacity hint (events per "
                                  "chunk x2); avoids adaptation recompiles on "

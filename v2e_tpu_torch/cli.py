@@ -144,8 +144,12 @@ def run(argv: Optional[List[str]] = None, device=None) -> Stats:
 
     if not args.profile:
         return convert()
+    import json
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from v2e_tpu_torch import tracing
 
     activities = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -158,6 +162,8 @@ def run(argv: Optional[List[str]] = None, device=None) -> Stats:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    with open(os.path.join(trace_dir, "spans.json"), "w") as f:
+        json.dump(tracing.export(tracing.drain()), f)
     return stats
 
 

@@ -37,6 +37,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from v2e_tpu_torch import tracing
+
 logger = logging.getLogger(__name__)
 
 CKPT_FILE = "train_state.pt"
@@ -60,6 +62,7 @@ class TripletSampler:
         self._cv2 = cv2
         self._cache_path = None
         self._cache_frames = None
+        self._batches = 0  # batches sampled: the next one's id in its span
 
     def _load(self, path: str) -> np.ndarray:
         if path == self._cache_path:
@@ -77,6 +80,11 @@ class TripletSampler:
         return self._cache_frames
 
     def sample_batch(self, batch_size: int):
+        self._batches += 1
+        with tracing.root("sampler", self._batches - 1):
+            return self._sample(batch_size)
+
+    def _sample(self, batch_size: int):
         from v2e_tpu_torch.models.slomo import MEAN
 
         I0 = np.empty((batch_size, 1, self.crop_h, self.crop_w), np.float32)

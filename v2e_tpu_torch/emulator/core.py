@@ -46,6 +46,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.device import scalar
 from v2e_tpu_torch.emulator.config import EmulatorConfig
 from v2e_tpu_torch.emulator.state import EmulatorParams, EmulatorState
@@ -584,53 +585,54 @@ def chunk_program(
     times = times.to(torch.float32)
     if cfg.per_frame:
         return (yield from _chunk_steps(cfg, params, state, frames, times, draws, row0))
-    dts = torch.diff(times, prepend=state.t_prev.reshape(1))
-    t_prevs = times - dts
-    dts3 = dts[:, None, None]
+    with tracing.span("emulator.precore", tracing.DEVICE, frames.device):
+        dts = torch.diff(times, prepend=state.t_prev.reshape(1))
+        t_prevs = times - dts
+        dts3 = dts[:, None, None]
 
-    log_new = frames if cfg.hdr else lin_log(frames)
-    inten01 = rescale_intensity_frame(frames) if cfg.needs_inten01 else None
+        log_new = frames if cfg.hdr else lin_log(frames)
+        inten01 = rescale_intensity_frame(frames) if cfg.needs_inten01 else None
 
-    if cfg.cutoff_hz > 0:
-        tau = scalar(1.0 / (math.pi * 2 * cfg.cutoff_hz), frames)
-        eps = torch.clamp(inten01 * (dts3 / tau), max=1.0)
-        lp = linear_iir(state.lp_log_frame, 1.0 - eps, eps * log_new)
-    else:
-        lp = log_new
+        if cfg.cutoff_hz > 0:
+            tau = scalar(1.0 / (math.pi * 2 * cfg.cutoff_hz), frames)
+            eps = torch.clamp(inten01 * (dts3 / tau), max=1.0)
+            lp = linear_iir(state.lp_log_frame, 1.0 - eps, eps * log_new)
+        else:
+            lp = log_new
 
-    pr_last = state.photoreceptor_noise_arr
-    lp_eff = lp
-    pr_noise = None
-    if cfg.photoreceptor_noise:
-        tau = scalar(1.0 / (math.pi * 2 * cfg.cutoff_hz), frames)
-        noise = params.photoreceptor_noise_vrms * draws["photoreceptor"]
-        eps_n = (dts / tau)[:, None, None] * torch.ones_like(frames[0])
-        pr_noise = linear_iir(pr_last, 1.0 - eps_n, eps_n * noise)
-        pr_last = pr_noise[-1]
-        lp_eff = lp + pr_noise
+        pr_last = state.photoreceptor_noise_arr
+        lp_eff = lp
+        pr_noise = None
+        if cfg.photoreceptor_noise:
+            tau = scalar(1.0 / (math.pi * 2 * cfg.cutoff_hz), frames)
+            noise = params.photoreceptor_noise_vrms * draws["photoreceptor"]
+            eps_n = (dts / tau)[:, None, None] * torch.ones_like(frames[0])
+            pr_noise = linear_iir(pr_last, 1.0 - eps_n, eps_n * noise)
+            pr_last = pr_noise[-1]
+            lp_eff = lp + pr_noise
 
-    leak_delta = None
-    if cfg.leak_rate_hz > 0:
-        leak_delta = (
-            dts3
-            * (cfg.leak_rate_hz * params.noise_rate_array)
-            * (1.0 - cfg.leak_jitter_fraction * draws["leak"])
-            * params.pos_thres
-        )
+        leak_delta = None
+        if cfg.leak_rate_hz > 0:
+            leak_delta = (
+                dts3
+                * (cfg.leak_rate_hz * params.noise_rate_array)
+                * (1.0 - cfg.leak_jitter_fraction * draws["leak"])
+                * params.pos_thres
+            )
 
-    shot_on = shot_off = shot_any = None
-    if cfg.simple_shot_noise:
-        shot_on, shot_off = generate_shot_noise(
-            draws["shot"], cfg.shot_noise_rate_hz, dts3,
-            cfg.shot_noise_inten_factor, inten01,
-            params.pos_thres_pre_prob, params.neg_thres_pre_prob,
-        )
-        shot_any = (shot_on | shot_off).to(torch.uint8)
+        shot_on = shot_off = shot_any = None
+        if cfg.simple_shot_noise:
+            shot_on, shot_off = generate_shot_noise(
+                draws["shot"], cfg.shot_noise_rate_hz, dts3,
+                cfg.shot_noise_inten_factor, inten01,
+                params.pos_thres_pre_prob, params.neg_thres_pre_prob,
+            )
+            shot_any = (shot_on | shot_off).to(torch.uint8)
 
-    lp_eff = lp_eff.contiguous()
-    pos_th = params.pos_thres.contiguous()
-    neg_th = params.neg_thres.contiguous()
-    base = state.base_log_frame.contiguous()
+        lp_eff = lp_eff.contiguous()
+        pos_th = params.pos_thres.contiguous()
+        neg_th = params.neg_thres.contiguous()
+        base = state.base_log_frame.contiguous()
     scidvs_state = {}
     if cfg.scidvs:
         new_base, new_mem, hp, lp_prev, signed16, i0_16, stride, K = yield from _scidvs_core(
@@ -725,7 +727,8 @@ def compact_chunk(
     cnt = outs["ev_count"].reshape(-1)
     total = cnt.shape[0]
     occ = _occupancy(cfg, outs)
-    found = torch.nonzero(occ).reshape(-1)[:capacity].to(torch.int32)
+    with tracing.span("emulator.compact.sync", tracing.WAIT):
+        found = torch.nonzero(occ).reshape(-1)[:capacity].to(torch.int32)
     idx = torch.full((capacity,), total, dtype=torch.int32, device=cnt.device)
     idx[: found.shape[0]] = found
     valid = idx < total
@@ -762,19 +765,20 @@ def emulate_and_compact_impl(
 
 def pack_chunk(cfg: EmulatorConfig, outs: Dict[str, torch.Tensor], capacity: int) -> Dict:
     """A chunk's outputs packed for the host (see `emulate_and_compact_impl`)."""
-    sparse = compact_chunk(cfg, outs, capacity)
-    n_occ = count_occupied(cfg, outs)
-    scalars = torch.cat(
-        [
-            outs["stride"].to(torch.int32),
-            outs["K"].to(torch.int32),
-            outs["num_on"].to(torch.int32),
-            outs["num_off"].to(torch.int32),
-            outs["t_prev"].to(torch.float32).view(torch.int32),
-            outs["t_frame"].to(torch.float32).view(torch.int32),
-            n_occ.reshape(1).to(torch.int32),
-        ]
-    )
+    with tracing.span("emulator.compact", tracing.DEVICE, outs["ev_count"].device):
+        sparse = compact_chunk(cfg, outs, capacity)
+        n_occ = count_occupied(cfg, outs)
+        scalars = torch.cat(
+            [
+                outs["stride"].to(torch.int32),
+                outs["K"].to(torch.int32),
+                outs["num_on"].to(torch.int32),
+                outs["num_off"].to(torch.int32),
+                outs["t_prev"].to(torch.float32).view(torch.int32),
+                outs["t_frame"].to(torch.float32).view(torch.int32),
+                n_occ.reshape(1).to(torch.int32),
+            ]
+        )
     packed = {"scalars": scalars, "sparse": sparse}
     if cfg.probe is not None:
         packed["probe"] = outs["probe"]

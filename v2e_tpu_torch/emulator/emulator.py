@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.device import resolve_device
 from v2e_tpu_torch.emulator.config import EmulatorConfig
 from v2e_tpu_torch.emulator.core import (
@@ -211,6 +212,7 @@ class EventEmulator:
         self.num_events_total = 0
         self.num_events_on = 0
         self.num_events_off = 0
+        self._submitted = 0  # chunks submitted: the next chunk's id in its spans
 
         seed_val = seed if seed != 0 else int.from_bytes(os.urandom(4), "little")
         self.generator = torch.Generator(device=self.device).manual_seed(seed_val)
@@ -357,7 +359,17 @@ class EventEmulator:
     def submit_batch(self, frames, times) -> Optional[Dict]:
         """Run a chunk on the device; returns a handle for `collect`, or
         None if the chunk only initialized the emulator (one frame)."""
-        frames = torch.as_tensor(frames).to(self.device)
+        cid = self._next_chunk()
+        with tracing.root("submit", cid) as sp:
+            return self._submit(frames, times, cid, sp)
+
+    def _next_chunk(self) -> int:
+        self._submitted += 1
+        return self._submitted - 1
+
+    def _submit(self, frames, times, cid, sp) -> Optional[Dict]:
+        with tracing.span("submit.upload", tracing.WAIT):
+            frames = torch.as_tensor(frames).to(self.device)
         times = self._check_times(times)
         if frames.ndim != 3 or frames.shape[0] != times.shape[0]:
             raise ValueError("frames must be [F,H,W] matching times [F]")
@@ -376,18 +388,20 @@ class EventEmulator:
             self._calibrate_photoreceptor_noise(float(times[start]) - self.t_previous)
         chunk = frames[start:]
         t_origin = self.t_origin
-        rel_times = torch.as_tensor(
-            (times[start:] - t_origin).astype(np.float32), device=self.device
-        )
+        with tracing.span("submit.upload", tracing.WAIT):
+            rel_times = torch.as_tensor(
+                (times[start:] - t_origin).astype(np.float32), device=self.device
+            )
         if self.mesh is not None and self.parallel_mode == "segment":
             outs, packed = self._submit_segments(frames, chunk, times, start, t_origin, rel_times)
         else:
             if self.cfg.pad_rows:
                 # inert rows so that H splits evenly (EmulatorConfig.pad_rows)
                 chunk = torch.nn.functional.pad(chunk, (0, 0, 0, self.cfg.pad_rows))
-            draws = draw_chunk_noise(
-                self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device
-            )
+            with tracing.span("emulator.precore", tracing.DEVICE, self.device):
+                draws = draw_chunk_noise(
+                    self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device
+                )
             if self.mesh is not None:
                 from v2e_tpu_torch.parallel.mesh import emulate_chunk_sharded
 
@@ -399,7 +413,7 @@ class EventEmulator:
                     self.cfg, self.params, self.state, chunk, rel_times, self._capacity, draws
                 )
         self._advance(times[start:], t_origin)
-        handle = self._handle(outs, packed, t_origin, times[start:])
+        handle = self._handle(outs, packed, t_origin, times[start:], cid, sp)
         if self.dvs_h5 is not None:
             handle["frames_for_h5"] = frames[start:]
         return handle
@@ -411,8 +425,9 @@ class EventEmulator:
         from v2e_tpu_torch.parallel.convert import emulate_and_compact_segmented
 
         W = self.segment_warmup
-        draws = draw_chunk_noise(
-            self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device)
+        with tracing.span("emulator.precore", tracing.DEVICE, self.device):
+            draws = draw_chunk_noise(
+                self.cfg, chunk.shape[0], chunk.shape[1:], self.generator, self.device)
         if self._tail is None:
             # first chunk: the first frame replayed at its own time (dt = 0
             # replays change nothing, whatever their draws)
@@ -452,25 +467,31 @@ class EventEmulator:
         times = self._check_times(times)
         if self._pr_noise_pending:
             self._calibrate_photoreceptor_noise(float(times[0]) - self.t_previous)
-        frames = torch.as_tensor(frames).to(self.device)
-        t_origin = self.t_origin
-        rel_times = torch.as_tensor(
-            (times - t_origin).astype(np.float32), device=self.device
-        )
-        self.state, outs, packed = fused_fn(
-            self.cfg, statics, self.params, self.state, flow_net, interp_net,
-            self._capacity, frames, rel_times, self.generator,
-        )
-        self._advance(times, t_origin)
-        handle = self._handle(outs, packed, t_origin, times)
+        cid = self._next_chunk()
+        with tracing.root("submit", cid) as sp:
+            with tracing.span("submit.upload", tracing.WAIT):
+                frames = torch.as_tensor(frames).to(self.device)
+                rel_times = torch.as_tensor(
+                    (times - self.t_origin).astype(np.float32), device=self.device
+                )
+            t_origin = self.t_origin
+            self.state, outs, packed = fused_fn(
+                self.cfg, statics, self.params, self.state, flow_net, interp_net,
+                self._capacity, frames, rel_times, self.generator,
+            )
+            self._advance(times, t_origin)
+            handle = self._handle(outs, packed, t_origin, times, cid, sp)
         handle["fused"] = True
         return handle
 
-    def _handle(self, outs, packed, t_origin, times) -> Dict:
+    def _handle(self, outs, packed, t_origin, times, cid: int, sp) -> Dict:
+        """A chunk's collect handle; it carries the chunk's id and whether its
+        spans record (`tracing`) to the collect threads."""
         return {
             "outs": outs, "packed": packed, "t_origin": t_origin,
             "times": times, "shape": tuple(outs["ev_count"].shape),
             "capacity": int(packed["sparse"]["idx"].shape[0]),
+            "chunk": cid, "traced": sp.recording,
         }
 
     def collect(self, handle: Dict):
@@ -487,7 +508,12 @@ class EventEmulator:
         """Stage 1 of `collect`: wait for the chunk, copy its scalars and
         occupied sparse cells to the host, and recompact at a larger
         capacity on overflow.  Device and copy work only, no sink writes."""
-        scalars = handle["packed"]["scalars"].cpu().numpy()
+        with tracing.root("collect.fetch", handle["chunk"], traced=handle["traced"]):
+            return self._fetch(handle)
+
+    def _fetch(self, handle: Dict) -> Dict:
+        with tracing.span("collect.fetch.wait", tracing.WAIT):
+            scalars = handle["packed"]["scalars"].cpu().numpy()
         if handle.get("fused"):
             # fused chunks append the max-flow magnitude (fused.py)
             handle["max_flow"] = float(scalars[-1:].view(np.float32)[0])
@@ -515,17 +541,24 @@ class EventEmulator:
     def collect_finalize(self, handle: Dict, packed: Dict):
         """Stage 2 of `collect`: materialize the events on the host, count
         them and write the sinks.  Runs in submission order."""
+        with tracing.root("collect.finalize", handle["chunk"], traced=handle["traced"]) as sp:
+            out = self._finalize(handle, packed)
+            sp.add("events", out[0].shape[0])
+        return out
+
+    def _finalize(self, handle: Dict, packed: Dict):
         n_occ = packed["n_occ"]
         sp = packed["sparse"]
         F, H, W = handle["shape"]
         if n_occ:
-            events, labels, offsets = materialize_events_sparse(
-                sp["idx"], sp["count"], sp["i0"], sp.get("shot"),
-                packed["stride"], packed["K"], packed["t_prev"],
-                packed["t_frame"], H, W, handle["t_origin"],
-                rng=self._np_rng if self.shuffle else None,
-                label_signal_noise=self.label_signal_noise,
-            )
+            with tracing.span("collect.materialize"):
+                events, labels, offsets = materialize_events_sparse(
+                    sp["idx"], sp["count"], sp["i0"], sp.get("shot"),
+                    packed["stride"], packed["K"], packed["t_prev"],
+                    packed["t_frame"], H, W, handle["t_origin"],
+                    rng=self._np_rng if self.shuffle else None,
+                    label_signal_noise=self.label_signal_noise,
+                )
         else:
             events = np.empty((0, 4), dtype=np.float64)
             labels = np.empty(0, dtype=bool) if self.label_signal_noise else None
@@ -543,10 +576,12 @@ class EventEmulator:
             for f, frame in enumerate(packed["frames_for_h5"]):
                 self.dvs_h5.appendFrame(frame, ts=float(handle["times"][f]),
                                         ev_idx=base_idx + int(offsets[f + 1]))
-            self.dvs_h5.appendEvents(events)
+            with tracing.span("collect.write"):
+                self.dvs_h5.appendEvents(events)
         for sink in (self.dvs_aedat2, self.dvs_aedat4, self.dvs_text):
             if sink is not None:
-                sink.appendEvents(events, signnoise_label=labels)
+                with tracing.span("collect.write"):
+                    sink.appendEvents(events, signnoise_label=labels)
         return events, labels, offsets
 
     # ------------------------------------------------------------------

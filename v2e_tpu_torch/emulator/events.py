@@ -18,7 +18,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from v2e_tpu_torch import native
+from v2e_tpu_torch import native, tracing
 
 
 def materialize_frame(
@@ -54,7 +54,7 @@ def materialize_frame(
     """
     s = (t_frame - t_prev) / max(int(K), 1)
     if not native.have_native():
-        native.calls[("materialize_frame", "numpy")] += 1
+        tracing.count("numpy.materialize_frame")
         return materialize_frame_numpy(ev_count, i0, stride, K, t_prev, t_frame,
                                        shot_on, shot_off, rng, label_signal_noise)
     if shot_on is not None and shot_on.shape != ev_count.shape:
@@ -179,7 +179,7 @@ def materialize_events_sparse(
     args = (idx, count, i0, shot, stride, K, t0, tf, s, H, W, rng, label_signal_noise)
     if native.have_native():
         return native.materialize_sparse(*args)
-    native.calls[("materialize_sparse", "numpy")] += 1
+    tracing.count("numpy.materialize_sparse")
     return materialize_events_sparse_numpy(*args)
 
 

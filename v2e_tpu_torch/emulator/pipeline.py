@@ -16,6 +16,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from v2e_tpu_torch import tracing
+
 
 class ChunkPipeline:
     def __init__(
@@ -52,7 +54,8 @@ class ChunkPipeline:
 
     def _drain_one(self) -> None:
         fut, handle, on_collected = self._pending.popleft()
-        events, labels, offsets = fut.result()
+        with tracing.root("pipeline.drain", handle["chunk"], tracing.WAIT):
+            events, labels, offsets = fut.result()
         if on_collected is not None:
             on_collected(handle)
         if events.shape[0]:

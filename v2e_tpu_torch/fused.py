@@ -18,6 +18,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.emulator.core import draw_chunk_noise, emulate_and_compact_impl
 from v2e_tpu_torch.models.slomo import (
     SuperSloMo,
@@ -57,14 +58,16 @@ def fused_chunk(
     H, W, U, max_group, warp_max_disp, quantize, conv_impl = statics
     x = preprocess_frames(frames, snap32(H), snap32(W))
     I0, I1 = x[:-1], x[1:]
-    flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
+    with tracing.span("slomo.flow_unet", tracing.DEVICE, x.device):
+        flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
     interp = interpolate_pairs(
         flow_net, interp_net, I0, I1, U, max_group, warp_max_disp,
         flow_out=flow_out, conv_impl=conv_impl,
     )
     dvs = postprocess_frames(interp, H, W, quantize)
     if draws is None:
-        draws = draw_chunk_noise(cfg, dvs.shape[0], (H, W), generator, dvs.device)
+        with tracing.span("emulator.precore", tracing.DEVICE, dvs.device):
+            draws = draw_chunk_noise(cfg, dvs.shape[0], (H, W), generator, dvs.device)
     state, outs, packed = emulate_and_compact_impl(
         cfg, emu_params, emu_state, dvs, rel_times, capacity, draws
     )
@@ -99,8 +102,7 @@ class FusedConverter:
         self.emulator = emulator
         self._disp: Optional[int] = None  # lookahead warp window
         self._next_u: Optional[int] = None  # lookahead auto-U bucket
-        self.n_fused = 0  # chunks submitted each way
-        self.n_staged = 0
+        self.n_staged = 0  # chunks submitted the staged way
 
     @staticmethod
     def usable(slomo: SuperSloMo, emulator, writes_slomo_video: bool) -> bool:
@@ -159,7 +161,6 @@ class FusedConverter:
         H, W = em.output_height, em.output_width
         disp = self._disp if (slomo.adaptive_disp and self._disp) else slomo.warp_max_disp
         statics = (H, W, U, slomo.max_group, disp, True, slomo.conv_impl)
-        self.n_fused += 1
         return em.submit_batch_fused(
             fused_chunk, statics, slomo.flow_net, slomo.interp_net,
             src_frames, times,

@@ -22,7 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-from v2e_tpu_torch import native
+from v2e_tpu_torch import native, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -139,7 +139,7 @@ class AEDat2Output:
         if self.flipx == self.flipy and native.have_native():
             out = native.pack_aedat2(*args, self.flipx, mask)
         else:
-            native.calls[("pack_aedat2", "numpy")] += 1
+            tracing.count("numpy.pack_aedat2")
             out = pack_aedat2_numpy(*args, self.flipx, self.flipy, mask)
         data = out.byteswap().tobytes(order="C")  # jAER is Java big-endian
         if self.numEventsWritten == 0:

@@ -18,6 +18,8 @@ import functools
 import numpy as np
 import torch
 
+from v2e_tpu_torch import tracing
+
 
 def _lanczos3(x: np.ndarray) -> np.ndarray:
     radius = np.float32(3.0)
@@ -61,9 +63,13 @@ def resize(x: torch.Tensor, out_hw, method: str) -> torch.Tensor:
     H, W = x.shape[-2:]
     oh, ow = out_hw
     if H != oh:
-        wh = torch.from_numpy(weight_matrix(H, oh, method)).to(x.device, x.dtype)
+        wh = weight_matrix(H, oh, method)
+        with tracing.span("slomo.resize.upload", tracing.WAIT):
+            wh = torch.from_numpy(wh).to(x.device, x.dtype)
         x = torch.einsum("...hw,hH->...Hw", x, wh)
     if W != ow:
-        ww = torch.from_numpy(weight_matrix(W, ow, method)).to(x.device, x.dtype)
+        ww = weight_matrix(W, ow, method)
+        with tracing.span("slomo.resize.upload", tracing.WAIT):
+            ww = torch.from_numpy(ww).to(x.device, x.dtype)
         x = torch.einsum("...hw,wW->...hW", x, ww)
     return x

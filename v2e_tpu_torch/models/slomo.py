@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.device import resolve_device, scalar
 from v2e_tpu_torch.models.backwarp import warp_planar
 from v2e_tpu_torch.models.convert_ckpt import (
@@ -112,7 +113,8 @@ def interpolate_pairs(
     """
     U = upsampling_factor
     if flow_out is None:
-        flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
+        with tracing.span("slomo.flow_unet", tracing.DEVICE, I0.device):
+            flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
     B = I0.shape[0]
     P0, P1 = I0[:, 0], I1[:, 0]
     u01, v01 = flow_out[:, 0], flow_out[:, 1]
@@ -153,7 +155,8 @@ def interpolate_pairs(
             [P0g, P1g, u01g, v01g, u10g, v10g, ut1, vt1, ut0, vt0, g1, g0], dim=1
         )
         dtype = next(interp_net.parameters()).dtype
-        intrp = interp_net(stack.to(dtype), conv_impl).to(torch.float32)
+        with tracing.span("slomo.refine_unet", tracing.DEVICE, I0.device):
+            intrp = interp_net(stack.to(dtype), conv_impl).to(torch.float32)
         ut0f = intrp[:, 0] + ut0
         vt0f = intrp[:, 1] + vt0
         ut1f = intrp[:, 2] + ut1

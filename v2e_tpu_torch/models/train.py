@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.device import resolve_device
 from v2e_tpu_torch.models.backwarp import backwarp_grad
 from v2e_tpu_torch.models.convert_ckpt import (
@@ -211,13 +212,22 @@ def make_train_step():
     batch's, as each rank's share is equal)."""
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        b = batch_to(batch, next(state.flow_net.parameters()).device)
+        with tracing.root("step", state.step):
+            return step(state, batch)
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        dev = next(state.flow_net.parameters()).device
+        with tracing.span("step.upload", tracing.WAIT):
+            b = batch_to(batch, dev)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = slomo_loss(
-            state.flow_net, state.interp_net, b["I0"], b["I1"], b["It"], b["t"]
-        )
-        loss.backward()
-        state.optimizer.step()
+        with tracing.span("step.forward", tracing.DEVICE, dev):
+            loss, metrics = slomo_loss(
+                state.flow_net, state.interp_net, b["I0"], b["I1"], b["It"], b["t"]
+            )
+        with tracing.span("step.backward", tracing.DEVICE, dev):
+            loss.backward()
+        with tracing.span("step.adam", tracing.DEVICE, dev):
+            state.optimizer.step()
         state.step += 1
         metrics = {k: m.detach() for k, m in metrics.items()}
         if state.replicated:

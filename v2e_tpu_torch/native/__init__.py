@@ -7,10 +7,12 @@ compacted count maps (`materialize_sparse`, `materialize_frame`,
 `count_frame_events`), AEDAT-2 packing (`pack_aedat2`), and the DVS
 video's histogram and AREA_COUNT scan (`hist2d_accumulate`,
 `area_count_scan`).  Each function here validates its arrays, calls the C
-function and counts the call in `calls`; the numpy version of each stays
-beside its caller (emulator/events.py, io/aedat2.py, render/renderer.py)
-as the plain version, which equals the library bit for bit: the build
-passes -ffp-contract=off, so no multiply-add is fused.
+function and counts the call in tracing's counter "native.<function>"
+(the callers count their numpy fallbacks in "numpy.<function>"); the
+numpy version of each stays beside its caller (emulator/events.py,
+io/aedat2.py, render/renderer.py) as the plain version, which equals the
+library bit for bit: the build passes -ffp-contract=off, so no
+multiply-add is fused.
 
 The library is built into ``v2e_tpu_torch/_build/`` (git-ignored) and
 rebuilt when the source is newer.  A host without g++, or where the build
@@ -24,10 +26,11 @@ import logging
 import os
 import subprocess
 import threading
-from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
+
+from v2e_tpu_torch import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -35,10 +38,6 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "aer_kernels.cpp")
 LIBRARY = os.path.join(os.path.dirname(_HERE), "_build", "libaer_kernels.so")
 GXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC")
-
-# calls by (function, "native" | "numpy"): the wrappers below count the
-# native calls, the callers count their numpy fallbacks
-calls: Counter = Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -140,7 +139,7 @@ def hist2d_accumulate(frame: np.ndarray, events: np.ndarray, full_scale: float) 
     ev = _events(events)
     H, W = frame.shape
     get_lib().hist2d_accumulate(ev, ev.shape[0], H, W, float(full_scale), frame)
-    calls[("hist2d_accumulate", "native")] += 1
+    tracing.count("native.hist2d_accumulate")
 
 
 def area_count_scan(events: np.ndarray, start: int, area_dimension: int,
@@ -154,7 +153,7 @@ def area_count_scan(events: np.ndarray, start: int, area_dimension: int,
     nw, nh = counts.shape
     i = get_lib().area_count_scan(ev, ev.shape[0], int(start), int(area_dimension),
                                   int(area_count), counts, nw, nh)
-    calls[("area_count_scan", "native")] += 1
+    tracing.count("native.area_count_scan")
     return int(i)
 
 
@@ -166,7 +165,7 @@ def count_frame_events(ev_count: np.ndarray, shot_on: Optional[np.ndarray] = Non
     if (on is None) != (off is None):
         raise ValueError("shot_on and shot_off go together")
     n = get_lib().count_frame_events(c, c.shape[0], _ptr(on), _ptr(off))
-    calls[("count_frame_events", "native")] += 1
+    tracing.count("native.count_frame_events")
     return int(n)
 
 
@@ -194,7 +193,7 @@ def materialize_frame(
         c, first, int(stride), H, W, float(t_prev), float(s), float(t_frame),
         _ptr(on), _ptr(off), int(K), out.reshape(-1), _ptr(lab), total,
     )
-    calls[("materialize_frame", "native")] += 1
+    tracing.count("native.materialize_frame")
     if written < 0:
         raise RuntimeError("native materialize_frame overflowed its buffer")
     return out[:written], (lab[:written].astype(bool) if lab is not None else None)
@@ -212,7 +211,7 @@ def pack_aedat2(events: np.ndarray, sizex: int, sizey: int, xshift: int, yshift:
     out = np.empty(2 * n, dtype=np.int32)
     get_lib().pack_aedat2(ev, n, int(sizex), int(sizey), int(xshift), int(yshift),
                           int(polshift), 1 if flip else 0, _ptr(mask), out)
-    calls[("pack_aedat2", "native")] += 1
+    tracing.count("native.pack_aedat2")
     return out
 
 
@@ -250,7 +249,7 @@ def materialize_sparse(
         idx32, c16, i16, _ptr(shot8), n_entries, *per_frame, F, int(H), int(W),
         _ptr(rand_keys), events.reshape(-1), _ptr(lab), offsets,
     )
-    calls[("materialize_sparse", "native")] += 1
+    tracing.count("native.materialize_sparse")
     if n != total:
         raise RuntimeError(f"native materialize_sparse wrote {n} of {total} events")
     return events, (lab.astype(bool) if lab is not None else None), offsets

@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels import build
 
 # output widths the UNet sends to K5 (v2e_tpu/models/unet.py:_LANE3_MAX_CO
@@ -113,13 +114,13 @@ def conv3x3_lane(
     None skips the activation.  `packed`: w already laid out for the kernel
     by `pack_conv3_weights(w, x.dtype)` (the UNet caches it); without it
     the wrapper packs w on each call.  Returns [N,H,W,Co] in x's type.
-    Every call is recorded in `conv3x3_lane.last_call` and counted by shape
-    in `conv3x3_lane.shapes`, ((N,H,W,Ci), Co); `launches` counts kernel
-    launches.
+    Every call is recorded in `conv3x3_lane.last_call`, ((N,H,W,Ci), Co),
+    and counted by shape in tracing's `shape_counter(N, H, W, Ci, Co)`;
+    kernel launches count in tracing's "launch.k5".
     """
     shape = (tuple(x.shape), int(w.shape[0]))
     conv3x3_lane.last_call = shape
-    conv3x3_lane.shapes[shape] = conv3x3_lane.shapes.get(shape, 0) + 1
+    tracing.count(shape_counter(*shape[0], shape[1]))
     if not x.is_cuda:
         return conv3x3_lane_plain(x, w, b, neg_slope)
     if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
@@ -175,12 +176,26 @@ def conv3x3_lane(
             int(is_bf16), 1, ctypes.c_void_p(stream),
         )
     build.check(err, "conv3x3_lane")
-    conv3x3_lane.launches += 1
+    tracing.count("launch.k5")
     return y if co_k == Co else y[..., :Co].contiguous()
 
 
-# kernel launches made by `conv3x3_lane`; the last call's and every call's
-# ((N,H,W,Ci), Co)
-conv3x3_lane.launches = 0
+# the last call's ((N,H,W,Ci), Co)
 conv3x3_lane.last_call = None
-conv3x3_lane.shapes = {}
+
+SHAPE_COUNTER = "shape.k5."
+
+
+def shape_counter(n: int, h: int, w: int, ci: int, co: int) -> str:
+    """The counter of `conv3x3_lane`'s calls at one shape."""
+    return f"{SHAPE_COUNTER}{n}x{h}x{w}x{ci}.{co}"
+
+
+def shape_counts(counters: dict) -> dict:
+    """{((N,H,W,Ci), Co): calls} from tracing's counters."""
+    out = {}
+    for name, n in counters.items():
+        if name.startswith(SHAPE_COUNTER):
+            xs, co = name[len(SHAPE_COUNTER):].split(".")
+            out[(tuple(int(v) for v in xs.split("x")), int(co))] = n
+    return out

@@ -55,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.device import scalar
 from v2e_tpu_torch.ops.core import I32_MAX_F, compute_event_map, fma_f32
 from v2e_tpu_torch.ops.kernels import build
@@ -196,7 +197,7 @@ def refractory_scan(
             F, H * W, float(refractory_period_s), ctypes.c_void_p(stream),
         )
     build.check(err, "refractory_scan")
-    refractory_scan.launches += 1
+    tracing.count("launch.k1")
     refractory_scan.last_call = ((F, H, W), grid)
     return new_base, new_mem, counts, i0, k_buf[:F]
 
@@ -222,9 +223,8 @@ def refractory_grid(npix: int, device: torch.device) -> Tuple[int, int, int]:
 _GRIDS = {}
 
 
-# kernel launches made by `refractory_scan` (one per call), and the last
-# call's ([F,H,W], (blocks, threads, pixels per thread in registers))
-refractory_scan.launches = 0
+# the last call's ([F,H,W], (blocks, threads, pixels per thread in
+# registers)); its launches, one per call, count in tracing's "launch.k1"
 refractory_scan.last_call = None
 
 
@@ -535,7 +535,7 @@ def refractory_scan_strips(strips: Sequence[tuple], timeout_s: float = STRIP_TIM
                 ctypes.c_void_p(stream.cuda_stream))
         if err:
             break
-        refractory_scan_strips.launches += 1
+        tracing.count("launch.k1_strips")
         launched.append(stream)
     for i, stream in zip(index, launched):
         if stream is not current[i]:
@@ -553,9 +553,8 @@ def refractory_scan_strips(strips: Sequence[tuple], timeout_s: float = STRIP_TIM
     return [o + (k[:F],) for o, k in zip(outs, kbufs)]
 
 
-# kernel launches made by `refractory_scan_strips` (one per strip and
-# call), and the last call's ([F,h,W] per strip, StripGrid per strip)
-refractory_scan_strips.launches = 0
+# the last call's ([F,h,W] per strip, StripGrid per strip); its launches,
+# one per strip and call, count in tracing's "launch.k1_strips"
 refractory_scan_strips.last_call = None
 
 
@@ -824,13 +823,12 @@ def scan(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     build.check(err, "scan")
-    scan.launches += 1
+    tracing.count("launch.k2")
     scan.last_plan = plan
     return new_base, counts
 
 
-# kernel launches made by `scan` (one per chunk), the last call's [F,H,W]
-# and the last launch's plan
-scan.launches = 0
+# the last call's [F,H,W] and the last launch's plan; its launches, one
+# per chunk, count in tracing's "launch.k2"
 scan.last_call = None
 scan.last_plan = None

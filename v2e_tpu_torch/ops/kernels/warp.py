@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels import build
 
 
@@ -140,12 +141,11 @@ def bilinear_warp(
             N, H, W, u.stride(0), ctypes.c_void_p(stream),
         )
     build.check(err, "bilinear_warp")
-    bilinear_warp.launches += 1
+    tracing.count("launch.k3")
     return out
 
 
-# kernel launches made by `bilinear_warp`
-bilinear_warp.launches = 0
+# the last call's max_disp; its launches count in tracing's "launch.k3"
 bilinear_warp.last_max_disp = None
 
 
@@ -183,12 +183,9 @@ def bilinear_warp_vjp(
             N, H, W, u.stride(0), grad_flow.stride(0), ctypes.c_void_p(stream),
         )
     build.check(err, "bilinear_warp_vjp")
-    bilinear_warp_vjp.launches += 1
+    tracing.count("launch.k3_vjp")
     return grad_flow, grad_img
 
-
-# kernel launches made by `bilinear_warp_vjp`
-bilinear_warp_vjp.launches = 0
 
 
 class BilinearWarpFn(torch.autograd.Function):

@@ -26,6 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels import build
 
 BH, BW = 8, 128  # output tile (rows, columns)
@@ -137,10 +138,10 @@ def warp_tiled(
             N, H, W, u.stride(0), int(max_base), ctypes.c_void_p(stream),
         )
     build.check(err, "warp_tiled")
-    warp_tiled.launches += 1
+    tracing.count("launch.k4")
     return out
 
 
-# kernel launches made by `warp_tiled`, and the last call's ([N,H,W], max_base)
-warp_tiled.launches = 0
+# the last call's ([N,H,W], max_base); its launches count in tracing's
+# "launch.k4"
 warp_tiled.last_call = None

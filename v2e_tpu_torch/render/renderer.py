@@ -21,7 +21,7 @@ from typing import Optional
 
 import numpy as np
 
-from v2e_tpu_torch import native
+from v2e_tpu_torch import native, tracing
 from v2e_tpu_torch.utils.paths import check_add_suffix
 from v2e_tpu_torch.utils.video import video_writer
 
@@ -45,7 +45,7 @@ def accumulate_histogram(
     elif native.have_native():
         native.hist2d_accumulate(frame, events, full_scale)
     else:
-        native.calls[("hist2d_accumulate", "numpy")] += 1
+        tracing.count("numpy.hist2d_accumulate")
         accumulate_histogram_numpy(frame, events, full_scale)
 
 
@@ -229,7 +229,7 @@ class EventRenderer:
         args = (events, start, self.area_dimension, self.area_count, self.area_counts)
         if native.have_native():
             return native.area_count_scan(*args)
-        native.calls[("area_count_scan", "numpy")] += 1
+        tracing.count("numpy.area_count_scan")
         return area_count_scan_numpy(*args)
 
     def _write_frame(self, img: np.ndarray, ts, start: int, end: int) -> None:
