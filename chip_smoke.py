@@ -93,7 +93,12 @@ Phases, each printed on its own line with its seconds:
      the cached and freshly packed weights giving equal outputs; cuDNN's
      conv + bias and leaky_relu in bf16 channels_last is timed beside it,
      and each shape's share of its bound and ratio to cuDNN printed (a
-     slow kernel is printed, not failed);
+     slow kernel is printed, not failed); then K6 (bilinear x2 upsample)
+     at the UNets' five up levels for a chunk of each conversion cell
+     (bf16) and, with its VJP, a training step (float32): equal to its
+     plain versions bit for bit, its ulps from F.interpolate and the
+     library's backward, and its device time beside the plain version's,
+     the library's and the bound;
  10. the interp UNet's forward at the fused chunk's shape (80 x 12 channels
      of 256x320, bf16, base 32) in the conv forms dense, packedz, fold45,
      packedfold45 and fold: time and max abs difference from dense, and
@@ -220,7 +225,8 @@ def log(msg: str) -> None:
 # each kernel wrapper's launch counter (v2e_tpu_torch/tracing.py)
 LAUNCH = {"refractory_scan": "launch.k1", "refractory_scan_strips": "launch.k1_strips",
           "scan": "launch.k2", "bilinear_warp": "launch.k3", "bilinear_warp_vjp": "launch.k3_vjp",
-          "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5"}
+          "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5", "upsample2x": "launch.k6",
+          "upsample2x_vjp": "launch.k6_vjp"}
 
 
 def launch_counts(names) -> dict:
@@ -583,7 +589,7 @@ def group_kernels(rows):
     return out
 
 
-def phase_train(torch, np, dev, tmp, launches):
+def phase_train(torch, np, dev, tmp, launches, k6_calls):
     """The port's train_slomo on the card at SuperSloMo's full width and its
     defaults (base 32, crop 256x320, batch 8, gap 2), TRAIN_STEPS steps on
     clips of make_training_videos rendered at 288x352: K3 and its VJP
@@ -591,7 +597,9 @@ def phase_train(torch, np, dev, tmp, launches):
     step alone (median of 10 after 3 warm-up steps, peak memory), one
     profiled step by kernel group, a static scene whose loss 8 steps
     lower, and the exported npz loaded into SuperSloMo for one
-    interpolation.  `launches` gets the counts of the tool's run."""
+    interpolation.  K6 and its VJP launch 10 times each per step (5 up
+    levels of 2 UNets).  `launches` gets the counts of the tool's run,
+    `k6_calls` K6's and its VJP's calls by shape there."""
     import importlib
 
     import v2e_tpu_torch.ops.kernels.warp as warp_mod
@@ -639,27 +647,33 @@ def phase_train(torch, np, dev, tmp, launches):
             "--crop", str(TRAIN_H), str(TRAIN_W), "--base", "32", "--log_every", "10",
             "--checkpoint_every", str(TRAIN_STEPS)]
     try:
-        before = launch_counts(["bilinear_warp", "bilinear_warp_vjp"])
+        before = launch_counts(["bilinear_warp", "bilinear_warp_vjp", "upsample2x",
+                                "upsample2x_vjp"])
         torch.cuda.synchronize()
         t = time.perf_counter()
-        run = train_slomo.run(argv, device="cuda")
+        with k6_recorder() as up, k6_recorder("upsample2x_vjp") as up_vjp:
+            run = train_slomo.run(argv, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches.update(launches_since(before))
     finally:
         (warp_mod.warp_plain, warp_mod.warp_plain_vjp, backwarp_mod.warp_plain,
          train_slomo.TripletSampler.sample_batch, train_slomo.save_checkpoint) = saved
+    k6_calls.update(upsample2x=Counter(up.calls), upsample2x_vjp=Counter(up_vjp.calls))
     per_step = (launches["bilinear_warp"] / TRAIN_STEPS, launches["bilinear_warp_vjp"] / TRAIN_STEPS)
     if per_step != (6, 6) or plain:
         raise AssertionError(f"train_slomo: K3 and VJP launches per step {per_step} != (6, 6), "
                              f"plain warp calls {dict(plain)}")
+    k6_step = (launches["upsample2x"] / TRAIN_STEPS, launches["upsample2x_vjp"] / TRAIN_STEPS)
+    if k6_step != (10, 10):
+        raise AssertionError(f"train_slomo: K6 and VJP launches per step {k6_step} != (10, 10)")
     if not all(np.isfinite(v) for v in run.metrics.values()):
         raise AssertionError(f"train_slomo: metrics not finite {run.metrics}")
     log(f"[train] train_slomo base 32, crop {TRAIN_H}x{TRAIN_W}, batch {TRAIN_N}: "
         f"{TRAIN_STEPS} steps in {wall:.2f} s ({run.samples / wall:.1f} samples/s; the loop "
         f"{run.wall_s:.2f} s, of it sampling {spent['sample']:.2f} s and the checkpoint "
         f"{spent['checkpoint']:.2f} s); K3 {per_step[0]:g} and VJP {per_step[1]:g} "
-        f"launches per step, no plain warp; last loss {run.metrics['loss']:.4f} "
+        f"launches per step, no plain warp; K6 {k6_step[0]:g} and VJP {k6_step[1]:g}; last loss {run.metrics['loss']:.4f} "
         f"(l_r {run.metrics['l_r']:.4f}, l_w {run.metrics['l_w']:.4f}, "
         f"l_s {run.metrics['l_s']:.4f}); cuDNN TF32 {tf32[0]}, matmul TF32 {tf32[1]}")
 
@@ -1167,31 +1181,52 @@ def check_run_i(np, out, n_events):
     return len(table)
 
 
-class SparseRecorder:
-    """Wraps native.materialize_sparse to keep each call's arguments (the
-    shuffle's generator copied before the call) for the [native] phase."""
+class CallRecorder:
+    """Wraps module.<name> to keep `keep(*args)` of each call, in `calls`."""
 
-    def __init__(self, native):
-        self.native, self.inner, self.calls = native, native.materialize_sparse, []
+    def __init__(self, module, name, keep):
+        self.module, self.name, self.keep = module, name, keep
+        self.inner, self.calls = getattr(module, name), []
 
     def __enter__(self):
-        self.native.materialize_sparse = self
+        setattr(self.module, self.name, self)
         return self
 
     def __exit__(self, *exc):
-        self.native.materialize_sparse = self.inner
+        setattr(self.module, self.name, self.inner)
 
     def __call__(self, *args):
-        self.calls.append(copy.deepcopy(args))
+        self.calls.append(self.keep(*args))
         return self.inner(*args)
+
+
+def sparse_recorder(native):
+    """native.materialize_sparse's calls, each argument copied before the
+    call (the shuffle's generator too), for the [native] phase."""
+    return CallRecorder(native, "materialize_sparse", lambda *a: copy.deepcopy(a))
+
+
+def k6_recorder(name="upsample2x"):
+    """K6's calls by (shape, dtype, channels_last): `upsample2x` (x) or
+    `upsample2x_vjp` (gout, channels_last), as Upsample2xFn makes them."""
+    from v2e_tpu_torch.ops.kernels import upsample
+
+    if name == "upsample2x":
+        def keep(x):
+            return tuple(x.shape), x.dtype, upsample._channels_last(x)
+    else:
+        def keep(gout, channels_last=False):
+            return tuple(gout.shape), gout.dtype, channels_last
+    return CallRecorder(upsample, name, keep)
 
 
 def phase_cli(torch, np, tmp, counters):
     """The port's CLI, runs A-E and I, then run A once more under
     torch.profiler (its launches not counted).  Returns {run: launches by
     kernel}, {run: the last [N,H,W] (and max_base) each kernel of the
-    run was launched with; for K5 every ((N,H,W,Ci), Co) with its
-    launches}, and run A's materialize_sparse calls (their arguments)."""
+    run was launched with; for K5 every ((N,H,W,Ci), Co) and for K6 every
+    (shape, dtype, channels_last) with its launches; the run's SloMo
+    chunks}, and run A's materialize_sparse calls (their arguments)."""
     from v2e_tpu_torch import cli, native, tracing
     from v2e_tpu_torch.ops.kernels.conv3 import shape_counts
 
@@ -1211,9 +1246,11 @@ def phase_cli(torch, np, tmp, counters):
     runs["E"] = runs["B"][:-1] + ["e.aedat"] + VARIANT_E
     runs["I"] = ([{"a.aedat": "i.aedat", "a.txt": "i.txt"}.get(f, f) for f in runs["A"]]
                  + ["--dvs_aedat4", "i.aedat4"])
-    want = {"A": ("warp_tiled", "refractory_scan"), "B": ("scan", "bilinear_warp"),
-            "C": ("scan", "bilinear_warp", "conv3x3_lane"), "D": ("bilinear_warp",),
-            "E": ("bilinear_warp",)}
+    # every run interpolates with SuperSloMo, so every run launches K6
+    want = {"A": ("warp_tiled", "refractory_scan", "upsample2x"),
+            "B": ("scan", "bilinear_warp", "upsample2x"),
+            "C": ("scan", "bilinear_warp", "conv3x3_lane", "upsample2x"),
+            "D": ("bilinear_warp", "upsample2x"), "E": ("bilinear_warp", "upsample2x")}
     want["I"] = want["A"]
     walls, events, rtfs = {}, {}, {}
     absent = {"A": ("bilinear_warp", "scan", "conv3x3_lane"),
@@ -1223,7 +1260,7 @@ def phase_cli(torch, np, tmp, counters):
               "E": ("warp_tiled", "refractory_scan", "scan", "conv3x3_lane")}
     absent["I"] = absent["A"]
     launches, shapes, n_frames = {}, {}, {}
-    recorder = SparseRecorder(native)
+    recorder = sparse_recorder(native)
     for name, flags in runs.items():
         out = os.path.join(tmp, "out" + name)
         argv = ["-i", src, "--input_frame_rate", str(SRC_FPS), "-o", out] + flags
@@ -1231,16 +1268,19 @@ def phase_cli(torch, np, tmp, counters):
         counted = tracing.counters()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        if name == "A":
-            with recorder:
+        with k6_recorder() as k6:
+            if name == "A":
+                with recorder:
+                    stats = cli.run(argv, device="cuda")
+            else:
                 stats = cli.run(argv, device="cuda")
-        else:
-            stats = cli.run(argv, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[name] = launches_since(before)
         host_calls = host_calls_since(counted)
         shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
+        shapes[name]["upsample2x"] = Counter(k6.calls)
+        shapes[name]["chunks"] = stats.staged_chunks + stats.fused_chunks
         if name == "A":
             shapes[name]["refractory_scan"] = counters["refractory_scan"].last_call[0]
             shapes[name]["U"] = stats.upsampling[-1]
@@ -1291,11 +1331,15 @@ def phase_cli(torch, np, tmp, counters):
                                  "fused chunks; wants U = 12 and fused chunks")
         bad = [k for k in want[name] if not launches[name][k]]
         bad += [k for k in absent[name] if launches[name][k]]
+        # K6 launches once per up level of each UNet forward, 5 a forward
+        if launches[name]["upsample2x"] % 5:
+            bad.append("upsample2x")
         if bad:
             raise AssertionError(f"run {name}: kernel launches {launches[name]}")
         path = f"{stats.staged_chunks} staged + {stats.fused_chunks} fused chunks"
         log(f"[cli] run {name}: U {stats.upsampling}, {path}; launches "
             + ", ".join(f"{k} {v}" for k, v in launches[name].items())
+            + f" (K6 {launches[name]['upsample2x'] / shapes[name]['chunks']:g} a chunk)"
             + f"; {stats.n_frames} frames, {stats.num_events} events, AEDAT-2 "
             f"{payload} B ({dropped} leading events dropped by the '#' guard); "
             f"wall {wall:.2f} s, realtime factor "
@@ -1798,6 +1842,119 @@ def phase_k5(torch, dev, shapes, launches):
         "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": tot["library_ms"],
         "shapes": rows,
+    }
+
+
+def phase_k6(torch, dev, cases):
+    """K6 (bilinear x2 upsample) and its VJP at the shapes the main path
+    launched them with.  `cases`: (tag, {(shape, dtype, channels_last):
+    calls} of the forward, the same of the VJP or None, the launches
+    counted (launch.k6, launch.k6_vjp or None) while they were recorded,
+    the chunks or steps they came from, "chunk" or "step").  The counted
+    launches must equal the recorded calls.  Each distinct call is
+    launched once and must equal the plain version bit for bit; its largest
+    difference from F.interpolate (and, for the VJP, from the library's
+    backward) in ulps of the output type at the taps' scale is printed.
+    Times are device times (CUDA events over repeated launches), weighted by
+    each call's launches and divided by the chunks or steps, beside the
+    plain version's, the library's and the bound (input read once, output
+    written once)."""
+    import torch.nn.functional as Fn
+
+    from v2e_tpu_torch.ops.kernels.upsample import (
+        upsample2x, upsample2x_plain, upsample2x_plain_vjp, upsample2x_vjp,
+    )
+
+    def ulps(got, want, scale, dtype):
+        fi = torch.finfo(dtype)
+        s = scale.to(torch.float64).abs().clamp(min=fi.tiny)
+        step = fi.eps * torch.exp2(torch.floor(torch.log2(s)))
+        return float(((got.double() - want.double()).abs() / step).max())
+
+    def lib_vjp(gout, shape):
+        return torch.ops.aten.upsample_bilinear2d_backward(
+            gout, list(gout.shape[2:]), list(shape), False, 2.0, 2.0)
+
+    def layout(channels_last):
+        return torch.channels_last if channels_last else torch.contiguous_format
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for tag, calls, vjp_calls, launches, per, unit in cases:
+        if launches != (sum(calls.values()), sum(vjp_calls.values()) if vjp_calls else None):
+            raise AssertionError(f"[k6] {tag}: launches {launches} counted, calls recorded "
+                                 f"{dict(calls)} {dict(vjp_calls or {})}")
+        tot = {"launches": launches[0], "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bytes": 0.0, "ulps": 0.0}
+        for (shape, dtype, cl), k in sorted(calls.items(), key=str):
+            n, c, h, w = shape
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            x = x.contiguous(memory_format=layout(cl))
+            got = upsample2x(x)
+            if not torch.equal(got, upsample2x_plain(x)):
+                raise AssertionError(f"K6 at {shape} {dtype} differs from its plain version")
+            lib = Fn.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+            scale = Fn.interpolate(x.abs().double(), scale_factor=2, mode="bilinear",
+                                   align_corners=False)
+            tot["ulps"] = max(tot["ulps"], ulps(got, lib, scale, dtype))
+            del lib, scale
+            reps = 20 if n * c * h * w < 50e6 else 10
+            tot["ms"] += k * time_ms(torch, lambda: upsample2x(x), reps=reps)
+            tot["plain_ms"] += k * time_ms(torch, lambda: upsample2x_plain(x), reps=3)
+            tot["library_ms"] += k * time_ms(torch, lambda: Fn.interpolate(
+                x, scale_factor=2, mode="bilinear", align_corners=False), reps=3)
+            tot["bytes"] += k * 5 * x.numel() * x.element_size()
+        if vjp_calls:
+            tot.update({"vjp_launches": launches[1], "vjp_ms": 0.0,
+                        "vjp_plain_ms": 0.0, "vjp_library_ms": 0.0, "vjp_bytes": 0.0,
+                        "vjp_ulps": 0.0})
+        for (shape, dtype, cl), k in sorted((vjp_calls or {}).items(), key=str):
+            gout = torch.randn(shape, generator=g, device=dev).to(dtype)
+            xshape = shape[:2] + (shape[2] // 2, shape[3] // 2)
+            gx = upsample2x_vjp(gout, cl)
+            if not torch.equal(gx, upsample2x_plain_vjp(gout, cl)):
+                raise AssertionError(f"K6's VJP at {shape} {dtype} differs from its plain "
+                                     "version")
+            scale = upsample2x_plain_vjp(gout.double().abs())
+            tot["vjp_ulps"] = max(tot["vjp_ulps"],
+                                  ulps(gx, lib_vjp(gout, xshape), scale, dtype))
+            tot["vjp_ms"] += k * time_ms(torch, lambda: upsample2x_vjp(gout, cl), reps=20)
+            tot["vjp_plain_ms"] += k * time_ms(torch, lambda: upsample2x_plain_vjp(gout, cl),
+                                               reps=3)
+            tot["vjp_library_ms"] += k * time_ms(torch, lambda: lib_vjp(gout, xshape), reps=3)
+            tot["vjp_bytes"] += k * 5 * gx.numel() * gx.element_size()
+        tot = {k: v / per if k.endswith(("ms", "bytes")) else v for k, v in tot.items()}
+        b_ms, _ = bound(tot["bytes"], 0)
+        kinds = sorted({(str(d).removeprefix("torch."), "channels_last" if cl else "NCHW")
+                        for _, d, cl in calls})
+        line = (f"[k6] {tag}: {tot['launches']} launches counted in {per} {unit}s, "
+                f"{tot['launches'] / per:g} a {unit} ({', '.join(' '.join(k) for k in kinds)}; "
+                + ", ".join(f"{'x'.join(map(str, sh))} x{k / per:g}"
+                            for (sh, _, _), k in sorted(calls.items(), key=str))
+                + f"): kernel {tot['ms']:.4f} ms a {unit}, plain {tot['plain_ms']:.3f} ms, "
+                f"F.interpolate {tot['library_ms']:.3f} ms, bound {b_ms:.4f} ms (bytes, "
+                f"{tot['bytes'] / 1e9:.3f} GB), {b_ms / tot['ms']:.1%} of the bound; "
+                f"F.interpolate within {tot['ulps']:.3g} ulps")
+        if vjp_calls:
+            vb_ms, _ = bound(tot["vjp_bytes"], 0)
+            line += (f"; VJP {tot['vjp_launches'] / per:g} launches a {unit}, kernel "
+                     f"{tot['vjp_ms']:.4f} ms, "
+                     f"plain {tot['vjp_plain_ms']:.3f} ms, library backward "
+                     f"{tot['vjp_library_ms']:.3f} ms, bound {vb_ms:.4f} ms, "
+                     f"{vb_ms / tot['vjp_ms']:.1%}; the library's backward within "
+                     f"{tot['vjp_ulps']:.3g} ulps")
+            tot["vjp_bound_ms"] = vb_ms
+        log(line)
+        tot["shapes"] = {f"{'x'.join(map(str, sh))} {str(d).removeprefix('torch.')}"
+                         f"{' channels_last' if cl else ''}": k / per
+                         for (sh, d, cl), k in calls.items()}
+        out[tag] = dict(tot, bound_ms=b_ms, per=per, unit=unit)
+    head = out[cases[0][0]]
+    return {
+        "name": "upsample2x", "route": "cuda", "source": "v2e_tpu_torch/csrc/upsample.cu",
+        "replaces": "none (v2e_tpu/models/unet.py:300, jax.image.resize)", "cases": out,
+        "launches": head["launches"], "ms": head["ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes", "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
     }
 
 
@@ -2764,10 +2921,11 @@ def main() -> int:
     from v2e_tpu_torch.fused import FusedConverter
     from v2e_tpu_torch.io.aedat2 import AEDat2Output
     from v2e_tpu_torch.io.text import DVSTextOutput
-    from v2e_tpu_torch.models.slomo import SuperSloMo
+    from v2e_tpu_torch.models.slomo import SuperSloMo, _group_split
     from v2e_tpu_torch.ops.kernels import build
     from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane
     from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
+    from v2e_tpu_torch.ops.kernels.upsample import upsample2x
     from v2e_tpu_torch.ops.kernels.warp import bilinear_warp
     from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled
     from v2e_tpu_torch.synthetic import make_source_frames
@@ -2816,17 +2974,21 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[fused] setup + staged + warm chunks {time.perf_counter() - t:.2f} s")
 
-    before = launch_counts(["refractory_scan", "bilinear_warp"])
+    before = launch_counts(["refractory_scan", "bilinear_warp", "upsample2x"])
     torch.cuda.synchronize()
     t = time.perf_counter()
     split = []
-    runs = run_chunks(np, fc, em, src, range(2, 2 + N_MEAS), B, U, split)
+    with k6_recorder() as k6_rec:
+        runs = run_chunks(np, fc, em, src, range(2, 2 + N_MEAS), B, U, split)
     wall = time.perf_counter() - t
-    k1["launches"], k3["launches"] = launches_since(before).values()
-    if len(runs) != N_MEAS or not k1["launches"] or not k3["launches"]:
+    k1["launches"], k3["launches"], k6_launches = launches_since(before).values()
+    # K6: 5 up levels of the flow UNet and of each refinement group's UNet
+    k6_want = 5 * (1 + _group_split(U, B, slomo.max_group)[0]) * N_MEAS
+    if (len(runs) != N_MEAS or not k1["launches"] or not k3["launches"]
+            or k6_launches != k6_want):
         raise AssertionError(
             f"main path ran {len(runs)} chunks, K1 launches {k1['launches']}, "
-            f"K3 launches {k3['launches']}")
+            f"K3 launches {k3['launches']}, K6 launches {k6_launches} (want {k6_want})")
     for _, hd in runs:
         fr = hd["outs"]["dvs_frames"]
         if tuple(fr.shape) != (B * U, H, W) or not bool(torch.isfinite(fr).all()):
@@ -2836,7 +2998,7 @@ def main() -> int:
     log(f"[fused] {N_MEAS} measured chunks of {B * U} frames at {W}x{H}: "
         f"{wall:.3f} s, {wall / N_MEAS * 1e3:.1f} ms/chunk, realtime factor "
         f"{rtf:.4f}; events/chunk {n_ev}; K1 launches {k1['launches']}, "
-        f"K3 launches {k3['launches']}; warp window {slomo.last_disp}/{fc._disp}")
+        f"K3 launches {k3['launches']}, K6 launches {k6_launches}; warp window {slomo.last_disp}/{fc._disp}")
     sub = [a for a, _ in split]
     col = [b for _, b in split]
     log(f"[fused] per chunk: submit (device work, waited for by compaction) "
@@ -2868,7 +3030,7 @@ def main() -> int:
     t = time.perf_counter()
     counters = {"refractory_scan": refractory_scan, "scan": scan,
                 "bilinear_warp": bilinear_warp, "warp_tiled": warp_tiled,
-                "conv3x3_lane": conv3x3_lane}
+                "conv3x3_lane": conv3x3_lane, "upsample2x": upsample2x}
     with tempfile.TemporaryDirectory() as tmp:
         cli_launches, cli_shapes, run_a_calls = phase_cli(torch, np, tmp, counters)
         log(f"[cli] {time.perf_counter() - t:.2f} s")
@@ -2939,9 +3101,9 @@ def main() -> int:
     vjp, k3["max_abs_err_train_shape"] = phase_k3_vjp(torch, dev)
     log(f"[k3-vjp] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    train_launches = {}
+    train_launches, train_k6 = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        training = phase_train(torch, np, dev, tmp, train_launches)
+        training = phase_train(torch, np, dev, tmp, train_launches, train_k6)
         log(f"[train] {time.perf_counter() - t:.2f} s")
         t = time.perf_counter()
         phase_train_small(torch, np)
@@ -2958,6 +3120,22 @@ def main() -> int:
     vjp["launches"] = train_launches["bilinear_warp_vjp"]
     k3["launches_train"] = train_launches["bilinear_warp"]
     k3["vjp"] = vjp["name"]  # the VJP's numbers are in its own entry
+
+    t = time.perf_counter()
+    k6 = phase_k6(torch, dev, [
+        (f"CLI run B (noisy, U={RUN_B_U}, as dvs346_noisy_u12)",
+         cli_shapes["B"]["upsample2x"], None, (cli_launches["B"]["upsample2x"], None),
+         cli_shapes["B"]["chunks"], "chunk"),
+        (f"fused chunks B={B} U={U}", Counter(k6_rec.calls), None, (k6_launches, None),
+         N_MEAS, "chunk"),
+        ("CLI run C (packedz)", cli_shapes["C"]["upsample2x"], None,
+         (cli_launches["C"]["upsample2x"], None), cli_shapes["C"]["chunks"], "chunk"),
+        (f"train_slomo batch {TRAIN_N} float32", train_k6["upsample2x"],
+         train_k6["upsample2x_vjp"],
+         (train_launches["upsample2x"], train_launches["upsample2x_vjp"]), TRAIN_STEPS,
+         "step"),
+    ])
+    log(f"[k6] {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     pixel = phase_pixel(torch, np, dev)
@@ -2984,7 +3162,7 @@ def main() -> int:
     log("[native] " + json.dumps({"host_cpu": cpu_model(), "functions": host_ms}))
     log("[training] " + json.dumps(training))
     log("[parallel] " + json.dumps({"pixel": pixel, "segment": segment, "ddp": ddp}))
-    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, k1_strips]}))
+    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, k6, k1_strips]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

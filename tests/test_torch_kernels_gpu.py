@@ -18,8 +18,12 @@ within 1e-5 (float32 sums in another order, inputs of unit scale: measured
 zero where the two float32 sums' own rounding exceeds an ulp (measured up
 to 4e-6 at values near 1e-4), with at most 0.5 % of the elements differing
 (measured 0.06 % at up4), against the plain version run with cuDNN's TF32
-off.  The emulator's variant paths (SciDVS, CSDVS, the per-frame path)
-have no kernel: they are held card against CPU at the tolerances of
+off.  K6 (the bilinear x2 upsample) and its VJP equal their plain
+versions bit for bit; K6 is within one ulp of F.interpolate in bf16 and
+fp16 and three in float32, and its VJP within four float32 ulps of
+autograd in float64 (see the tests for the scale).  The emulator's
+variant paths (SciDVS, CSDVS, the per-frame path) have no kernel: they
+are held card against CPU at the tolerances of
 test_torch_variants.py, and a checkpoint's resume on the card bit for bit.
 The synthetic renderers on the card equal the port's host generators
 (particles within 1e-3 of its float64 painter, two float32 ulps of the
@@ -48,14 +52,23 @@ from v2e_tpu_torch.ops.kernels.warp import (
     warp_plain,
     warp_plain_vjp,
 )
+from v2e_tpu_torch.ops.kernels.upsample import (
+    Upsample2xFn,
+    upsample2x,
+    upsample2x_plain,
+    upsample2x_plain_vjp,
+    upsample2x_vjp,
+)
 from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled, warp_tiled_plain
+from test_torch_upsample import library, within_ulps
 
 pytestmark = pytest.mark.gpu
 
 # each wrapper's launch counter (v2e_tpu_torch/tracing.py)
 LAUNCH = {"refractory_scan": "launch.k1", "refractory_scan_strips": "launch.k1_strips",
           "scan": "launch.k2", "bilinear_warp": "launch.k3", "bilinear_warp_vjp": "launch.k3_vjp",
-          "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5"}
+          "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5", "upsample2x": "launch.k6",
+          "upsample2x_vjp": "launch.k6_vjp"}
 
 
 def n_launches(kernel) -> int:
@@ -321,11 +334,14 @@ def test_train_step_on_card_matches_cpu(no_tf32, monkeypatch, cudnn, grad_tol):
         state = train.create_train_state(params=params, device=dev)
         b = train.batch_to(batch, torch.device(dev))
         n0 = n_launches(bilinear_warp_vjp)
+        u0, v0 = n_launches(upsample2x), n_launches(upsample2x_vjp)
         loss, metrics = train.slomo_loss(state.flow_net, state.interp_net,
                                          b["I0"], b["I1"], b["It"], b["t"])
         loss.backward()
         if dev == "cuda":
             assert n_launches(bilinear_warp_vjp) == n0 + 6
+            # both UNets' five up levels, forward and VJP
+            assert (n_launches(upsample2x), n_launches(upsample2x_vjp)) == (u0 + 10, v0 + 10)
         out[dev] = ({k: float(v.detach()) for k, v in metrics.items()},
                     [p.grad.cpu() for net in (state.flow_net, state.interp_net)
                      for p in net.parameters()])
@@ -454,6 +470,138 @@ def test_conv3x3_wrapper_checks_its_inputs(cuda):
     ):
         with pytest.raises(ValueError):
             conv3x3_lane(*bad)
+
+
+# ---- K6: the UNets' bilinear x2 upsample and its VJP ----
+
+# the UNets' up-level inputs (C, H, W) at base 32 on 256x320 frames
+UP_LEVELS = [(512, 8, 10), (512, 16, 20), (256, 32, 40), (128, 64, 80), (64, 128, 160)]
+# the five levels at the conversion cells' N (8 flow, 80 refinement images;
+# training's 8 are the first), then one row, one column, odd sizes and
+# planes that fill no vector (12 channels, 10 or 13 columns)
+UP_SHAPES = [(n, c, h, w) for n in (8, 80) for c, h, w in UP_LEVELS] + [
+    (3, 16, 1, 40), (3, 16, 40, 1), (2, 12, 7, 13), (2, 12, 6, 10)]
+UP_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def up_input(cuda, shape, dtype, channels_last, seed=4):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last if channels_last
+                        else torch.contiguous_format)
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("dtype", UP_DTYPES, ids=str)
+@pytest.mark.parametrize("shape", UP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_upsample2x_kernel_matches_plain_and_library(cuda, shape, dtype, channels_last):
+    """K6 equals its plain version bit for bit and F.interpolate, in the
+    input's layout, to one ulp of a 16-bit output type at the binade of the
+    taps' scale, or three float32 ulps (PyTorch's kernel contracts the
+    products into FMAs; each of the two is up to 1.5 ulps off the exact
+    sum; measured 0 ulps in bf16 and 3 in float32 at training's shapes)."""
+    x = up_input(cuda, shape, dtype, channels_last)
+    n0 = n_launches(upsample2x)
+    got = upsample2x(x)
+    assert n_launches(upsample2x) == n0 + 1
+    assert torch.equal(got, upsample2x_plain(x))
+    want = library(x)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    assert got.is_contiguous(memory_format=fmt) and want.is_contiguous(memory_format=fmt)
+    n_ulps = 3.0 if dtype == torch.float32 else 1.0
+    assert within_ulps(got, want, library(x.abs().to(torch.float64)), dtype, n_ulps)
+
+
+@pytest.mark.parametrize("dtype", UP_DTYPES, ids=str)
+def test_upsample2x_kernel_unaligned_and_strided_input(cuda, dtype):
+    """A view 2 bytes off 16-byte alignment takes the kernel's scalar path;
+    a transposed view is made contiguous once."""
+    base = torch.randn(2 * 64 * 16 * 20 + 1, device=cuda).to(dtype)
+    x = base[1:].view(2, 64, 16, 20)
+    got = upsample2x(x)
+    assert torch.equal(got, upsample2x_plain(x.contiguous()))
+    xt = up_input(cuda, (2, 64, 20, 16), dtype, False).transpose(2, 3)
+    assert torch.equal(upsample2x(xt), upsample2x_plain(xt.contiguous()))
+
+
+@pytest.mark.parametrize("shape", UP_SHAPES[:5] + UP_SHAPES[10:],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_upsample2x_vjp_kernel_matches_plain_and_autograd(cuda, shape):
+    """K6's VJP (float32 NCHW, training's form) equals its plain version
+    bit for bit and autograd of F.interpolate in float64 within four
+    float32 ulps at the scale of the VJP of |gout|."""
+    check_upsample2x_vjp(cuda, shape, torch.float32, False)
+
+
+@pytest.mark.parametrize("dtype,channels_last", [(torch.float32, True),
+                                                 (torch.bfloat16, False),
+                                                 (torch.float16, True)], ids=str)
+def test_upsample2x_vjp_wrapper_converts_other_gradients(cuda, dtype, channels_last):
+    """Any other gradient (here also channels_last, as autograd may hand
+    it) is copied to float32 NCHW once and the result rounded once to its
+    type, in the layout asked for: the plain version's
+    answer bit for bit, within one ulp of the output type of autograd."""
+    for shape in (UP_SHAPES[1], UP_SHAPES[12]):
+        check_upsample2x_vjp(cuda, shape, dtype, channels_last)
+
+
+def check_upsample2x_vjp(cuda, shape, dtype, channels_last):
+    n, c, h, w = shape
+    gout = up_input(cuda, (n, c, 2 * h, 2 * w), dtype, channels_last, seed=5)
+    n0 = n_launches(upsample2x_vjp)
+    got = upsample2x_vjp(gout, channels_last)
+    assert n_launches(upsample2x_vjp) == n0 + 1
+    assert torch.equal(got, upsample2x_plain_vjp(gout, channels_last))
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    assert got.is_contiguous(memory_format=fmt)
+    x = torch.zeros(shape, dtype=torch.float64, device=cuda, requires_grad=True)
+    library(x).backward(gout.to(torch.float64))
+    scale = upsample2x_plain_vjp(gout.to(torch.float64).abs())
+    if dtype == torch.float32:
+        assert within_ulps(got, x.grad, scale, torch.float32, 4.0)
+    else:
+        assert within_ulps(got, x.grad, scale, dtype)
+
+
+@pytest.mark.parametrize("form", ["dense", "packedz"])
+def test_unet_forward_on_card_launches_k6_per_up_level(cuda, monkeypatch, form):
+    """One K6 launch per up level, NCHW in the dense form and the
+    channels_last view K5 leaves in packedz (at base 8, K5 runs up2 and
+    up3), and the same output as the UNet with the plain upsample."""
+    from v2e_tpu_torch.models import unet as unet_mod
+    from v2e_tpu_torch.models.unet import UNet, unet_apply
+
+    net = UNet(6, 4, base=8).to(cuda)
+    net.keep_float32_terms(torch.bfloat16)
+    net = net.to(torch.bfloat16)
+    x = torch.randn((2, 6, 64, 96), device=cuda)
+    n0 = n_launches(upsample2x)
+    with torch.no_grad():
+        got = unet_apply(net, x, form)
+    assert n_launches(upsample2x) == n0 + 5
+    monkeypatch.setattr(unet_mod, "Upsample2xFn",
+                        type("Plain", (), {"apply": staticmethod(upsample2x_plain)}))
+    with torch.no_grad():
+        want = unet_apply(net, x, form)
+    assert n_launches(upsample2x) == n0 + 5
+    assert torch.equal(got, want)
+
+
+def test_upsample2x_refuses_other_types_and_never_falls_back(cuda):
+    n0, v0 = n_launches(upsample2x), n_launches(upsample2x_vjp)
+    x = torch.randn((1, 2, 4, 4), device=cuda, dtype=torch.float64)
+    for bad in (x, x.to(torch.int32)):
+        with pytest.raises(TypeError):
+            upsample2x(bad)
+        with pytest.raises(TypeError):
+            Upsample2xFn.apply(bad)
+    with pytest.raises(TypeError):
+        upsample2x_vjp(torch.randn((1, 2, 8, 8), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        upsample2x(x[0].float())
+    with pytest.raises(ValueError):
+        upsample2x_vjp(torch.randn((1, 2, 7, 8), device=cuda))
+    assert (n_launches(upsample2x), n_launches(upsample2x_vjp)) == (n0, v0)
 
 
 # ---- the emulator's variant paths on the card (no kernel of their own) ----

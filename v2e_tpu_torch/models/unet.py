@@ -21,7 +21,9 @@ Conv forms (`conv_impl`, the CLI's --unet_conv), as in the JAX package:
   level or (suffix 45) on up4 and up5; every other layer is dense.
 * packed, packedup, blocked: TPU layouts of the dense function (column
   packing that fills the TPU's 128 lanes); they run dense.
-The fold is plain F.conv2d, as the JAX package left it to XLA.
+The fold is plain F.conv2d, as the JAX package left it to XLA.  Every
+other up level's bilinear x2 is K6 (ops/kernels/upsample.py), its VJP in
+training.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from torch import nn
 from v2e_tpu_torch.ops.kernels.conv3 import (
     LANE3_MAX_CO, LANE3_MIN_CO, conv3x3_lane, pack_conv3_weights,
 )
+from v2e_tpu_torch.ops.kernels.upsample import Upsample2xFn, upsample2x_along
 
 CONV_FORMS = ("dense", "packedz", "fold", "fold45", "packedfold", "packedfold45",
               "packed", "packedup", "blocked")
@@ -98,22 +101,9 @@ def upfold_kernel(w: torch.Tensor) -> torch.Tensor:
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
-
-
-def _upsample2_along(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Bilinear x2 with half-pixel centers and edge clamping along one axis
-    (F.interpolate's weights: up[2i] = 0.25 x[i-1] + 0.75 x[i], up[2i+1] =
-    0.75 x[i] + 0.25 x[i+1]), summed in float32 and rounded once.  For the
-    fold's one-pixel border lines: F.interpolate's CUDA kernel runs a thread
-    per output pixel that loops over N*C, which on a line of a few hundred
-    pixels takes milliseconds."""
-    xf = x.to(torch.float32)
-    n = x.shape[dim]
-    prev = torch.cat([xf.narrow(dim, 0, 1), xf.narrow(dim, 0, n - 1)], dim)
-    nxt = torch.cat([xf.narrow(dim, 1, n - 1), xf.narrow(dim, n - 1, 1)], dim)
-    up = torch.stack([0.25 * prev + 0.75 * xf, 0.75 * xf + 0.25 * nxt], dim + 1)
-    return up.flatten(dim, dim + 1).to(x.dtype)
+    """Bilinear x2 (F.interpolate's, align_corners=False) in x's layout:
+    K6 with its VJP on the card, its plain version on the CPU."""
+    return Upsample2xFn.apply(x)
 
 
 def upconv_fold(x: torch.Tensor, conv: nn.Conv2d, wf: torch.Tensor) -> torch.Tensor:
@@ -137,12 +127,12 @@ def upconv_fold(x: torch.Tensor, conv: nn.Conv2d, wf: torch.Tensor) -> torch.Ten
     def row_corr(row, wrow):
         # the out-of-range full-res row equals the border row upsampled in
         # W; its own out-of-range columns equal its corner pixels
-        up = _upsample2_along(row, 3)
+        up = upsample2x_along(row, 3)
         c = F.conv2d(F.pad(up, (1, 1, 0, 0), mode="replicate"), wrow[:, :, None, :])
         return c.reshape(n, co, wh, 2).permute(0, 3, 1, 2)  # [N, c, Co, Wh]
 
     def col_corr(col, wcol):
-        up = _upsample2_along(col, 2)
+        up = upsample2x_along(col, 2)
         c = F.conv2d(F.pad(up, (0, 0, 1, 1), mode="replicate"), wcol[:, :, :, None])
         return c.reshape(n, co, hh, 2).permute(0, 3, 1, 2)  # [N, r, Co, Hh]
 

@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("emulator_scan", "warp", "warp_tiled", "conv3x3")
+KERNELS = ("emulator_scan", "warp", "warp_tiled", "conv3x3", "upsample")
 
 # sm_90a: Hopper.  --fmad=false and no fast math: the kernels must round
 # every float operation as written (see the notes in the sources).
