@@ -3001,8 +3001,8 @@ def main() -> int:
         f"K3 launches {k3['launches']}, K6 launches {k6_launches}; warp window {slomo.last_disp}/{fc._disp}")
     sub = [a for a, _ in split]
     col = [b for _, b in split]
-    log(f"[fused] per chunk: submit (device work, waited for by compaction) "
-        f"{np.mean(sub) * 1e3:.1f} ms, collect (fetch + host events) "
+    log(f"[fused] per chunk: submit (the host's enqueue, no wait for the device) "
+        f"{np.mean(sub) * 1e3:.1f} ms, collect (fetch, which waits for its chunk, + host events) "
         f"{np.mean(col) * 1e3:.1f} ms")
     phase_profile(torch, np, fc, em, src, 2 + N_MEAS, wall / N_MEAS * 1e3)
     t = time.perf_counter()

@@ -1,7 +1,9 @@
 """The port's spans and counters (v2e_tpu_torch/tracing.py) on the CPU:
 nothing records without a profiler; under one a small SloMo conversion
 gives each chunk its submit, fetch and finalize spans under one id, nested
-on their threads, and event counts that add up to the AEDAT-2 file; a chunk
+on their threads, and event counts that add up to the AEDAT-2 file, with
+the resize weights copied to the device once per process (in the staged
+first chunk) and no host wait inside compaction; a chunk
 submitted under the profiler is traced whole after it stops; a training
 step gives its four stages.
 """
@@ -14,13 +16,14 @@ from v2e_tpu_torch import tracing
 from v2e_tpu_torch.emulator import EventEmulator
 from v2e_tpu_torch.emulator.pipeline import ChunkPipeline
 from v2e_tpu_torch.fused import FusedConverter
+from v2e_tpu_torch.models.resize import device_weight_matrix
 from v2e_tpu_torch.models.slomo import SuperSloMo
 from v2e_tpu_torch.synthetic import make_source_frames
 
 H, W, B, U = 180, 240, 2, 2  # a size the AEDAT-2 sink takes
 CHUNKS = 4  # the staged first chunk, then three fused ones
-SUBMIT_CHILDREN = {"submit.upload", "slomo.resize.upload", "slomo.flow_unet",
-                   "slomo.refine_unet", "emulator.precore", "emulator.compact"}
+SUBMIT_CHILDREN = {"submit.upload", "slomo.flow_unet", "slomo.refine_unet",
+                   "emulator.precore", "emulator.compact"}
 
 
 def cpu_profile():
@@ -75,6 +78,8 @@ def test_counters_are_plain_integers():
 def test_conversion_spans_per_chunk(tmp_path):
     fc, em = converter(tmp_path)
     tracing.drain()
+    device_weight_matrix.cache_clear()
+    uploads = tracing.counters().get("resize.upload", 0)
     with cpu_profile():
         pipe = ChunkPipeline(em, lambda *a: None, depth=2)
         try:
@@ -102,13 +107,17 @@ def test_conversion_spans_per_chunk(tmp_path):
         names = {s.name for s in spans if s.parent is sub}
         assert SUBMIT_CHILDREN <= names, names
         compact = [s for s in spans if s.parent is sub and s.name == "emulator.compact"]
-        assert [c.name for c in spans if c.parent is compact[0]] == ["emulator.compact.sync"]
+        assert [c.name for c in spans if c.parent is compact[0]] == []
     for s in spans:  # a device span's time on the CPU is its host time
         if s.kind == tracing.DEVICE:
             assert s.device_ms == pytest.approx((s.end_ns - s.start_ns) / 1e6)
     waits = {s.name for s in spans if s.kind == tracing.WAIT}
-    assert {"submit.upload", "slomo.resize.upload", "emulator.compact.sync",
-            "collect.fetch.wait"} <= waits
+    assert {"submit.upload", "collect.fetch.wait"} <= waits
+    # four matrices (two sizes each way), copied in the staged chunk's
+    # interpolation, before its submit opens: no fused chunk copies one
+    assert tracing.counters()["resize.upload"] == uploads + 4
+    assert by_name(spans, "slomo.resize.upload") == []
+    assert by_name(spans, "emulator.compact.sync") == []
     fin = by_name(spans, "collect.finalize")
     assert all({c.name for c in spans if c.parent is f} == {"collect.materialize", "collect.write"}
                for f in fin if f.counts["events"])

@@ -258,7 +258,7 @@ def v2e_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                                  "submit (submit.upload, slomo.resize.upload, "
                                  "slomo.flow_unet, "
                                  "slomo.refine_unet, emulator.precore, "
-                                 "emulator.compact, emulator.compact.sync), "
+                                 "emulator.compact), "
                                  "collect.fetch (collect.fetch.wait), "
                                  "collect.finalize (collect.materialize, "
                                  "collect.write) and pipeline.drain; device "

@@ -710,6 +710,17 @@ def _occupancy(cfg: EmulatorConfig, outs: Dict[str, torch.Tensor]) -> torch.Tens
     return occ
 
 
+def select_occupied(occ: torch.Tensor, capacity: int) -> torch.Tensor:
+    """i32[capacity]: the indices of the first `capacity` True entries of
+    the flat mask `occ`, ascending, then occ.numel() in the unused slots;
+    torch.nonzero(occ)[:capacity] padded, with no wait for the device (the
+    output's size does not depend on the data).  Slot k holds the first
+    index at which the running count of True entries reaches k + 1."""
+    running = torch.cumsum(occ, 0, dtype=torch.int32)
+    wanted = torch.arange(1, capacity + 1, dtype=torch.int32, device=occ.device)
+    return torch.searchsorted(running, wanted, out_int32=True)
+
+
 def compact_chunk(
     cfg: EmulatorConfig, outs: Dict[str, torch.Tensor], capacity: int
 ) -> Dict[str, torch.Tensor]:
@@ -726,11 +737,7 @@ def compact_chunk(
     """
     cnt = outs["ev_count"].reshape(-1)
     total = cnt.shape[0]
-    occ = _occupancy(cfg, outs)
-    with tracing.span("emulator.compact.sync", tracing.WAIT):
-        found = torch.nonzero(occ).reshape(-1)[:capacity].to(torch.int32)
-    idx = torch.full((capacity,), total, dtype=torch.int32, device=cnt.device)
-    idx[: found.shape[0]] = found
+    idx = select_occupied(_occupancy(cfg, outs), capacity)
     valid = idx < total
     safe = torch.clamp(idx, max=total - 1).to(torch.int64)
     out = {

@@ -18,6 +18,7 @@ With a mesh (parallel/) a chunk runs in pixel strips
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -29,7 +30,7 @@ import numpy as np
 import torch
 
 from v2e_tpu_torch import tracing
-from v2e_tpu_torch.device import resolve_device
+from v2e_tpu_torch.device import resolve_device, upload
 from v2e_tpu_torch.emulator.config import EmulatorConfig
 from v2e_tpu_torch.emulator.core import (
     _slice_logical,
@@ -81,6 +82,42 @@ _SCALARS = "__scalars"
 _GENERATOR = "__generator_state"
 _SHUFFLE = "__shuffle_state"  # the within-iteration shuffle's numpy generator
 _JAX_KEY = "__key_data"
+
+
+class _ChunkCopy:
+    """Copies of one chunk's device arrays to the host that wait for that
+    chunk alone.  On a card they run on a copy stream of their own, which
+    waits on the chunk's event `done` (`EventEmulator._handle`), into pinned
+    memory, and only that stream is synchronised: a copy on the current
+    stream would also wait for every chunk queued behind this one.  On the
+    CPU they are plain copies."""
+
+    def __init__(self, done: Optional["torch.cuda.Event"], stream: Optional["torch.cuda.Stream"]):
+        self.stream = None if done is None else stream
+        if self.stream is not None:
+            self.stream.wait_event(done)
+
+    def after_chunk(self):
+        """A context in which device work follows the chunk's, and nothing
+        queued after it."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def to_host(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """The tensors as numpy arrays, once their copies have run."""
+        if self.stream is None:
+            return {k: v.cpu().numpy() for k, v in tensors.items()}
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, v in tensors.items():
+                out[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                out[k].copy_(v, non_blocking=True)
+        self.stream.synchronize()
+        return {k: v.numpy() for k, v in out.items()}
+
+    def array(self, tensor: torch.Tensor) -> np.ndarray:
+        return self.to_host({"": tensor})[""]
 
 
 def _capacity_bucket(n: int) -> int:
@@ -213,6 +250,8 @@ class EventEmulator:
         self.num_events_on = 0
         self.num_events_off = 0
         self._submitted = 0  # chunks submitted: the next chunk's id in its spans
+        # the fetch's copies to the host (_ChunkCopy)
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
         seed_val = seed if seed != 0 else int.from_bytes(os.urandom(4), "little")
         self.generator = torch.Generator(device=self.device).manual_seed(seed_val)
@@ -369,7 +408,7 @@ class EventEmulator:
 
     def _submit(self, frames, times, cid, sp) -> Optional[Dict]:
         with tracing.span("submit.upload", tracing.WAIT):
-            frames = torch.as_tensor(frames).to(self.device)
+            frames = upload(frames, self.device)
         times = self._check_times(times)
         if frames.ndim != 3 or frames.shape[0] != times.shape[0]:
             raise ValueError("frames must be [F,H,W] matching times [F]")
@@ -389,9 +428,7 @@ class EventEmulator:
         chunk = frames[start:]
         t_origin = self.t_origin
         with tracing.span("submit.upload", tracing.WAIT):
-            rel_times = torch.as_tensor(
-                (times[start:] - t_origin).astype(np.float32), device=self.device
-            )
+            rel_times = upload((times[start:] - t_origin).astype(np.float32), self.device)
         if self.mesh is not None and self.parallel_mode == "segment":
             outs, packed = self._submit_segments(frames, chunk, times, start, t_origin, rel_times)
         else:
@@ -439,7 +476,7 @@ class EventEmulator:
             )
         tail_frames, tail_times, tail_draws = self._tail
         S = self.n_segments or self.mesh.size
-        tail_rel = torch.as_tensor((tail_times - t_origin).astype(np.float32), device=self.device)
+        tail_rel = upload((tail_times - t_origin).astype(np.float32), self.device)
         self.state, outs, packed = emulate_and_compact_segmented(
             self.cfg, self.params, self.state, chunk, rel_times, tail_frames, tail_rel, S, W,
             self._capacity, self.mesh, draws, tail_draws)
@@ -470,10 +507,8 @@ class EventEmulator:
         cid = self._next_chunk()
         with tracing.root("submit", cid) as sp:
             with tracing.span("submit.upload", tracing.WAIT):
-                frames = torch.as_tensor(frames).to(self.device)
-                rel_times = torch.as_tensor(
-                    (times - self.t_origin).astype(np.float32), device=self.device
-                )
+                frames = upload(frames, self.device)
+                rel_times = upload((times - self.t_origin).astype(np.float32), self.device)
             t_origin = self.t_origin
             self.state, outs, packed = fused_fn(
                 self.cfg, statics, self.params, self.state, flow_net, interp_net,
@@ -486,12 +521,18 @@ class EventEmulator:
 
     def _handle(self, outs, packed, t_origin, times, cid: int, sp) -> Dict:
         """A chunk's collect handle; it carries the chunk's id and whether its
-        spans record (`tracing`) to the collect threads."""
+        spans record (`tracing`) to the collect threads, and on a card the
+        event `done`, recorded after the chunk's last device work, which the
+        fetch waits on instead of the whole stream."""
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
         return {
             "outs": outs, "packed": packed, "t_origin": t_origin,
             "times": times, "shape": tuple(outs["ev_count"].shape),
             "capacity": int(packed["sparse"]["idx"].shape[0]),
-            "chunk": cid, "traced": sp.recording,
+            "chunk": cid, "traced": sp.recording, "done": done,
         }
 
     def collect(self, handle: Dict):
@@ -512,8 +553,9 @@ class EventEmulator:
             return self._fetch(handle)
 
     def _fetch(self, handle: Dict) -> Dict:
+        copy = _ChunkCopy(handle["done"], self._copy_stream)
         with tracing.span("collect.fetch.wait", tracing.WAIT):
-            scalars = handle["packed"]["scalars"].cpu().numpy()
+            scalars = copy.array(handle["packed"]["scalars"])
         if handle.get("fused"):
             # fused chunks append the max-flow magnitude (fused.py)
             handle["max_flow"] = float(scalars[-1:].view(np.float32)[0])
@@ -525,17 +567,17 @@ class EventEmulator:
             # capacity overflow: recompact the dense maps at a larger bucket
             cap = _capacity_bucket(n_occ)
             logger.info(f"compaction capacity {handle['capacity']} -> {cap}")
-            sparse = compact_chunk(self.cfg, handle["outs"], cap)
+            tracing.count("compact.recompact")
+            with copy.after_chunk():
+                sparse = compact_chunk(self.cfg, handle["outs"], cap)
         self._capacity = max(self._capacity, _capacity_bucket(2 * max(n_occ, 1)))
-        packed["sparse"] = {k: v[:n_occ].cpu().numpy() for k, v in sparse.items()}
+        packed["sparse"] = copy.to_host({k: v[:n_occ] for k, v in sparse.items()})
         if self.cfg.probe is not None:
-            packed["probe"] = handle["packed"]["probe"].cpu().numpy()
+            packed["probe"] = copy.array(handle["packed"]["probe"])
         if self.cfg.emit_states and self.save_dvs_model_state:
-            packed["states"] = {
-                k: v.cpu().numpy() for k, v in handle["outs"]["states"].items()
-            }
+            packed["states"] = copy.to_host(handle["outs"]["states"])
         if "frames_for_h5" in handle:
-            packed["frames_for_h5"] = handle["frames_for_h5"].cpu().numpy()
+            packed["frames_for_h5"] = copy.array(handle["frames_for_h5"])
         return packed
 
     def collect_finalize(self, handle: Dict, packed: Dict):

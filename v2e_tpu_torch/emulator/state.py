@@ -131,8 +131,10 @@ def init_state(
 
 
 def rebase_state(state: EmulatorState, shift: float) -> EmulatorState:
-    """Shift all chunk-relative times by ``-shift``."""
-    s = torch.tensor(shift, dtype=torch.float32, device=state.t_prev.device)
+    """Shift all chunk-relative times by ``-shift``, rounded to float32
+    first.  A Python scalar, not a tensor made on the device: that would
+    copy from the host and wait for the stream."""
+    s = float(np.float32(shift))
     return dataclasses.replace(
         state, timestamp_mem=state.timestamp_mem - s, t_prev=state.t_prev - s
     )

@@ -3,7 +3,8 @@
 
 torch.nn.functional.interpolate has no lanczos kernel and treats the edges
 differently when antialiasing, so the port builds the same per-axis weight
-matrices as JAX in numpy and applies them with two einsums:
+matrices as JAX in numpy, keeps each on the device once made, and applies
+them with two einsums:
 
 * sample position of output pixel j: (j + 0.5) / scale - 0.5 (half-pixel
   centres);
@@ -57,19 +58,28 @@ def weight_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def device_weight_matrix(in_size: int, out_size: int, method: str, device: torch.device,
+                         dtype: torch.dtype) -> torch.Tensor:
+    """`weight_matrix` cast to `dtype` on `device`, made once per key: the
+    copy to the card waits for the stream, so a call must not make it.
+    Each miss opens the span `slomo.resize.upload` and counts
+    `resize.upload`.  Callers must not write to the tensor."""
+    with tracing.span("slomo.resize.upload", tracing.WAIT):
+        w = torch.from_numpy(weight_matrix(in_size, out_size, method)).to(device, dtype)
+    tracing.count("resize.upload")
+    return w
+
+
 def resize(x: torch.Tensor, out_hw, method: str) -> torch.Tensor:
     """Resize the last two axes of x [..., H, W] to `out_hw`; an axis whose
     size does not change is left alone, as JAX does."""
     H, W = x.shape[-2:]
     oh, ow = out_hw
     if H != oh:
-        wh = weight_matrix(H, oh, method)
-        with tracing.span("slomo.resize.upload", tracing.WAIT):
-            wh = torch.from_numpy(wh).to(x.device, x.dtype)
+        wh = device_weight_matrix(H, oh, method, x.device, x.dtype)
         x = torch.einsum("...hw,hH->...Hw", x, wh)
     if W != ow:
-        ww = weight_matrix(W, ow, method)
-        with tracing.span("slomo.resize.upload", tracing.WAIT):
-            ww = torch.from_numpy(ww).to(x.device, x.dtype)
+        ww = device_weight_matrix(W, ow, method, x.device, x.dtype)
         x = torch.einsum("...hw,wW->...hW", x, ww)
     return x

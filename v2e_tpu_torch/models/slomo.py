@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from v2e_tpu_torch import tracing
-from v2e_tpu_torch.device import resolve_device, scalar
+from v2e_tpu_torch.device import resolve_device, scalar, upload
 from v2e_tpu_torch.models.backwarp import warp_planar
 from v2e_tpu_torch.models.convert_ckpt import (
     from_jax_params,
@@ -315,7 +315,7 @@ class SuperSloMo:
         return max_disp
 
     def _flow(self, frames, H: int, W: int):
-        frames = torch.as_tensor(frames).to(self.device)
+        frames = upload(frames, self.device)
         x = preprocess_frames(frames, snap32(H), snap32(W))
         I0, I1 = x[:-1], x[1:]
         flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1), self.conv_impl)

@@ -27,21 +27,24 @@ The spans, by thread, and what each times:
   submitting thread (the thread that calls the emulator's submit):
     submit                 root of a chunk: EventEmulator.submit_batch,
                            submit_batch_fused
-    submit.upload          WAIT: frames and times to the device
-    slomo.resize.upload    WAIT: a resize's weight matrix to the device
-                           (a pageable copy: it waits for the stream)
+    submit.upload          WAIT: frames and times to the device (through
+                           pinned memory: the host copy, no wait for the
+                           stream)
+    slomo.resize.upload    WAIT: a resize's weight matrix to the device, on
+                           a miss of its device cache only (a pageable
+                           copy: it waits for the stream)
     slomo.flow_unet        DEVICE: the flow UNet
     slomo.refine_unet      DEVICE: one group's refinement UNet
     emulator.precore       DEVICE: the noise draws, lin-log, lowpass,
                            leak and shot noise up to K1/K2's inputs
     emulator.compact       DEVICE: the sparse compaction (pack_chunk)
-    emulator.compact.sync  WAIT: compaction's torch.nonzero
     pipeline.drain         WAIT, root: ChunkPipeline waits for the oldest
                            chunk's events
   fetch thread:
     collect.fetch          root: the chunk's copy to the host
-    collect.fetch.wait     WAIT: the copy of its scalars, which waits for
-                           the chunk on the device
+    collect.fetch.wait     WAIT: the copy of its scalars, which waits on
+                           the chunk's own event (recorded in submit after
+                           its last device work), not on the stream
   finalize thread:
     collect.finalize       root, count `events`: materialize and write
     collect.materialize    the events from the compacted cells, shuffled
@@ -56,8 +59,11 @@ The spans, by thread, and what each times:
 Counters (`count`, `counters`) are plain integers, always on: kernel
 launches (`launch.k1` ... `launch.k6`, `launch.k1_strips`,
 `launch.k3_vjp`, `launch.k6_vjp`), K5's calls by shape
-(`shape.k5.<N>x<H>x<W>x<Ci>.<Co>`) and the host library's calls by path
-(`native.<function>`, `numpy.<function>`).
+(`shape.k5.<N>x<H>x<W>x<Ci>.<Co>`), the host library's calls by path
+(`native.<function>`, `numpy.<function>`), the resize weight matrices
+copied to a device (`resize.upload`, one per sizes, method, device and
+dtype) and the chunks recompacted in the fetch at a larger capacity
+(`compact.recompact`).
 
 `drain()` returns the recorded spans and forgets them.
 """
