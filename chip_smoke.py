@@ -202,14 +202,11 @@ import sys
 import tempfile
 import time
 from collections import Counter
+from contextlib import ExitStack
+
+from portbench.yardstick import PEAK_BF16_FLOP_S, PEAK_BYTES_S, PEAK_F32_OPS_S, bound_s
 
 TIME_LIMIT_S = 1100  # a hang becomes a traceback and a non-zero exit
-
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) ops/s
-# and dense bf16 tensor-core FLOP/s
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_OPS_S = 67e12
-PEAK_BF16_OPS_S = 989e12
 
 H, W = 260, 346
 U, B = 10, 16
@@ -300,9 +297,10 @@ def cpu_model() -> str:
 
 
 def bound(nbytes: float, nops: float, peak_ops: float = PEAK_F32_OPS_S):
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = nops / peak_ops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(ms, what sets it): the harness's bound (portbench/yardstick.py) in
+    ms, and "bytes" or "operations", the peak that sets it."""
+    what = "bytes" if nbytes / PEAK_BYTES_S >= nops / peak_ops else "operations"
+    return bound_s(nbytes, nops, peak_ops) * 1e3, what
 
 
 def time_ms(torch, fn, reps: int, warm: int = 1) -> float:
@@ -349,7 +347,7 @@ def check_k1(torch, F, dt, R, tag, plain_reps=2):
     dt/K in every frame after the first, i0 > 0 somewhere, spike times
     updated), one launch; then both timed.  Returns the numbers."""
     from v2e_tpu_torch.ops.kernels.emulator_scan import (
-        refractory_scan, refractory_scan_plain,
+        refractory_grid, refractory_scan, refractory_scan_plain,
     )
 
     dev = torch.device("cuda")
@@ -358,7 +356,7 @@ def check_k1(torch, F, dt, R, tag, plain_reps=2):
     before = launch_counts(["refractory_scan"])
     got = refractory_scan(*args)
     per_call = launches_since(before)["refractory_scan"]
-    grid = refractory_scan.last_call[1]
+    grid = refractory_grid(H * W, args[0].device)
     want = refractory_scan_plain(*args)
     torch.cuda.synchronize()
     names = ("base", "mem", "counts", "i0", "K")
@@ -436,7 +434,7 @@ def phase_k3(torch, dev):
     flow = Fn.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=True).contiguous()
     u, v = flow[:, 0], flow[:, 1]
 
-    got = bilinear_warp(img, u, v, 32)
+    got = bilinear_warp(img, u, v)
     want = warp_plain(img, u, v)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -454,7 +452,7 @@ def phase_k3(torch, dev):
                               align_corners=False)
 
     lib_err = float((lib()[:, 0] - want).abs().max())
-    ms = time_ms(torch, lambda: bilinear_warp(img, u, v, 32), reps=20)
+    ms = time_ms(torch, lambda: bilinear_warp(img, u, v), reps=20)
     plain_ms = time_ms(torch, lambda: warp_plain(img, u, v), reps=5)
     library_ms = time_ms(torch, lib, reps=20)
     b_ms, b_by = bound(N * h * w * 16, N * h * w * 30)
@@ -940,7 +938,9 @@ def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2, **inputs):
     """K2 against its plain version on k2_inputs (`inputs` goes to it):
     counts equal, base within 1e-6, one launch per call; then both timed.
     Returns the numbers."""
-    from v2e_tpu_torch.ops.kernels.emulator_scan import GROUP, RING, scan, scan_plain
+    from v2e_tpu_torch.ops.kernels.emulator_scan import (
+        GROUP, RING, _device_plan, scan, scan_plain, stream_layout,
+    )
 
     args = k2_inputs(torch, dev, F, h, w, noisy, **inputs)
     before = launch_counts(["scan"])
@@ -956,7 +956,7 @@ def check_k2(torch, dev, F, h, w, noisy, tag, plain_reps=2, **inputs):
         raise AssertionError(f"K2 {tag}: base differs by {err} > 1e-6")
     if per_call != 1:
         raise AssertionError(f"K2 {tag}: {per_call} launches per call, not 1")
-    plan = scan.last_plan
+    plan = _device_plan(h * w, F, args[0].device.index, *stream_layout(*args[:3]))[0]
     ms = time_ms(torch, lambda: scan(*args), reps=20)
     dev_ms = time_device_ms(torch, lambda: scan(*args), reps=20)
     plain_ms = time_ms(torch, lambda: scan_plain(*args), reps=plain_reps)
@@ -1220,6 +1220,25 @@ def k6_recorder(name="upsample2x"):
     return CallRecorder(upsample, name, keep)
 
 
+def shape_recorders() -> dict:
+    """CallRecorders of the calls a conversion makes to K1 and K2 (their
+    [F,H,W]) and to K4 (its [N,H,W] and max_base), where the emulator core
+    and the backwarp call them."""
+    import importlib
+
+    from v2e_tpu_torch.emulator import core
+    # the module: v2e_tpu_torch.models exports the function `backwarp` under its name
+    backwarp = importlib.import_module("v2e_tpu_torch.models.backwarp")
+
+    def frames(lp, *rest):
+        return tuple(lp.shape)
+
+    return {"refractory_scan": CallRecorder(core, "refractory_scan", frames),
+            "scan": CallRecorder(core, "scan", frames),
+            "warp_tiled": CallRecorder(backwarp, "warp_tiled",
+                                       lambda img, u, v, mb: (tuple(img.shape), int(mb)))}
+
+
 def phase_cli(torch, np, tmp, counters):
     """The port's CLI, runs A-E and I, then run A once more under
     torch.profiler (its launches not counted).  Returns {run: launches by
@@ -1268,21 +1287,23 @@ def phase_cli(torch, np, tmp, counters):
         counted = tracing.counters()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        with k6_recorder() as k6:
+        recs = shape_recorders()
+        with k6_recorder() as k6, ExitStack() as stack:
+            for rec in recs.values():
+                stack.enter_context(rec)
             if name == "A":
-                with recorder:
-                    stats = cli.run(argv, device="cuda")
-            else:
-                stats = cli.run(argv, device="cuda")
+                stack.enter_context(recorder)
+            stats = cli.run(argv, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches[name] = launches_since(before)
         host_calls = host_calls_since(counted)
-        shapes[name] = {k: counters[k].last_call for k in want[name] if k in ("scan", "warp_tiled")}
+        last = {k: rec.calls[-1] if rec.calls else None for k, rec in recs.items()}
+        shapes[name] = {k: last[k] for k in want[name] if k in ("scan", "warp_tiled")}
         shapes[name]["upsample2x"] = Counter(k6.calls)
         shapes[name]["chunks"] = stats.staged_chunks + stats.fused_chunks
         if name == "A":
-            shapes[name]["refractory_scan"] = counters["refractory_scan"].last_call[0]
+            shapes[name]["refractory_scan"] = last["refractory_scan"]
             shapes[name]["U"] = stats.upsampling[-1]
         if name == "C":
             k5 = shape_counts(tracing.counters())
@@ -1818,7 +1839,7 @@ def phase_k5(torch, dev, shapes, launches):
         library_ms = time_ms(torch, lib, reps=10)
         nbytes = 2 * n * h * w * (ci + co) + 2 * 9 * ci * co + 4 * co
         flops = 2 * n * h * w * ci * co * 9
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_OPS_S)
+        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOP_S)
         log(f"[k5] conv3x3_lane {n}x{h}x{w} {ci}->{co} bf16: max abs err {e:.3g}, "
             f"{share:.4%} of elements differ (all within one bf16 ulp); kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, cuDNN conv+leaky_relu {library_ms:.3f} ms, bound "
@@ -1830,7 +1851,7 @@ def phase_k5(torch, dev, shapes, launches):
                      ("bytes", nbytes), ("flops", flops)):
             tot[k] += v
     torch.backends.cudnn.allow_tf32 = True
-    b_ms, b_by = bound(tot["bytes"], tot["flops"], PEAK_BF16_OPS_S)
+    b_ms, b_by = bound(tot["bytes"], tot["flops"], PEAK_BF16_FLOP_S)
     log(f"[k5] {launches} launches in run C; both shapes together (one call each): "
         f"kernel {tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, cuDNN "
         f"{tot['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / tot['ms']:.1%} "
@@ -2626,7 +2647,8 @@ def phase_k1_strips(torch, dev, launches):
     want = es.refractory_scan_strips_plain(strips)
     whole = es.refractory_scan(*args)
     torch.cuda.synchronize()
-    grids = es.refractory_scan_strips.last_call[1]
+    grids = es._device_grids(tuple(a[0].shape[1] * a[0].shape[2] for a in strips),
+                             tuple(a[0].device.index for a in strips))
     for k, name in enumerate(("base", "mem", "counts", "i0")):
         g = torch.cat([r[k] for r in got], dim=-2)
         if not (torch.equal(g, torch.cat([r[k] for r in want], dim=-2))
@@ -2921,7 +2943,7 @@ def main() -> int:
     from v2e_tpu_torch.fused import FusedConverter
     from v2e_tpu_torch.io.aedat2 import AEDat2Output
     from v2e_tpu_torch.io.text import DVSTextOutput
-    from v2e_tpu_torch.models.slomo import SuperSloMo, _group_split
+    from v2e_tpu_torch.models.slomo import MAX_GROUP, SuperSloMo, _group_split
     from v2e_tpu_torch.ops.kernels import build
     from v2e_tpu_torch.ops.kernels.conv3 import conv3x3_lane
     from v2e_tpu_torch.ops.kernels.emulator_scan import refractory_scan, scan
@@ -2983,7 +3005,7 @@ def main() -> int:
     wall = time.perf_counter() - t
     k1["launches"], k3["launches"], k6_launches = launches_since(before).values()
     # K6: 5 up levels of the flow UNet and of each refinement group's UNet
-    k6_want = 5 * (1 + _group_split(U, B, slomo.max_group)[0]) * N_MEAS
+    k6_want = 5 * (1 + _group_split(U, B, MAX_GROUP)[0]) * N_MEAS
     if (len(runs) != N_MEAS or not k1["launches"] or not k3["launches"]
             or k6_launches != k6_want):
         raise AssertionError(
@@ -2998,7 +3020,7 @@ def main() -> int:
     log(f"[fused] {N_MEAS} measured chunks of {B * U} frames at {W}x{H}: "
         f"{wall:.3f} s, {wall / N_MEAS * 1e3:.1f} ms/chunk, realtime factor "
         f"{rtf:.4f}; events/chunk {n_ev}; K1 launches {k1['launches']}, "
-        f"K3 launches {k3['launches']}, K6 launches {k6_launches}; warp window {slomo.last_disp}/{fc._disp}")
+        f"K3 launches {k3['launches']}, K6 launches {k6_launches}; warp window {fc.window}")
     sub = [a for a, _ in split]
     col = [b for _, b in split]
     log(f"[fused] per chunk: submit (the host's enqueue, no wait for the device) "

@@ -137,7 +137,6 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
     assert torch.equal(got, conv3x3_lane_plain(*args))
     assert tracing.counters().get("launch.k5", 0) == n0  # launches count the CUDA kernel only
     key = ((2, 8, 12, 16), 32)
-    assert conv3x3_lane.last_call == key
     assert shape_counts(tracing.counters())[key] == shapes.get(key, 0) + 1
 
 

@@ -32,7 +32,7 @@ from v2e_tpu_torch.emulator.state import from_jax_emulator
 from v2e_tpu_torch.fused import fused_chunk
 from v2e_tpu_torch.models import slomo as tslomo
 from v2e_tpu_torch.models.convert_ckpt import from_jax_params
-from v2e_tpu_torch.models.unet import unet_apply
+from v2e_tpu_torch.models.unet import DENSE, unet_apply
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "fixtures", "slomo_golden.npz")
 H, W, B, U = 48, 64, 3, 4
@@ -66,7 +66,7 @@ def case():
     tf, ti = from_jax_params(to_np(jf), to_np(ji), "cpu")
     tparams, tstate = from_jax_emulator(np_fields(params), np_fields(state), "cpu")
     t_state, t_outs, t_packed = fused_chunk(
-        EmulatorConfig(**EMU), (H, W, U, 8, 32, True, "dense"), tparams, tstate, tf, ti, CAP,
+        EmulatorConfig(**EMU), (H, W, U, 8, 32, DENSE), tparams, tstate, tf, ti, CAP,
         torch.from_numpy(src), torch.from_numpy(times), None, NO_DRAWS)
     return dict(src=src, times=times, jf=jf, ji=ji, tf=tf, ti=ti, jcfg=jcfg,
                 params=params, state=state, tparams=tparams, tstate=tstate,

@@ -40,6 +40,7 @@ from v2e_tpu_torch.ops.kernels.conv3 import (
     pack_conv3_weights,
 )
 from v2e_tpu_torch.ops.kernels.emulator_scan import (
+    refractory_grid,
     refractory_scan,
     refractory_scan_plain,
     scan,
@@ -109,8 +110,7 @@ def test_refractory_scan_kernel_matches_plain(cuda, F, H, W, R):
     got = refractory_scan(*args)
     want = refractory_scan_plain(*args)
     assert n_launches(refractory_scan) == n0 + 1
-    (blocks, threads, regpix) = refractory_scan.last_call[1]
-    assert refractory_scan.last_call[0] == (F, H, W)
+    (blocks, threads, regpix) = refractory_grid(H * W, args[0].device)
     assert regpix == 0 or H * W <= blocks * threads * regpix
     if H * W > 500_000:  # more pixels than the grid has threads
         assert H * W > blocks * threads
@@ -190,7 +190,10 @@ def assert_scan_matches_plain(args):
 def test_scan_kernel_at_more_shapes(cuda, F, H, W, leak, shot):
     args = scan_inputs(cuda, F, H, W, leak, shot)
     got = assert_scan_matches_plain(args)
-    plan = scan.last_plan
+    from v2e_tpu_torch.ops.kernels import emulator_scan
+
+    plan = emulator_scan._device_plan(H * W, F, args[0].device.index,
+                                      *emulator_scan.stream_layout(*args[:3]))[0]
     assert plan.npix == H * W and plan.smem_bytes <= 232_448
     assert len(plan.strips) - 1 == min(torch.cuda.get_device_properties(cuda)
                                        .multi_processor_count, -(-H * W // 16))
@@ -258,7 +261,7 @@ def test_bilinear_warp_kernel_matches_plain(cuda):
     img = torch.rand((5, 40, 70), generator=g, device=cuda)
     flow = 40 * torch.rand((5, 2, 40, 70), generator=g, device=cuda) - 20
     n0 = n_launches(bilinear_warp)
-    got = bilinear_warp(img, flow[:, 0], flow[:, 1], 32)
+    got = bilinear_warp(img, flow[:, 0], flow[:, 1])
     assert n_launches(bilinear_warp) == n0 + 1
     assert float((got - warp_plain(img, flow[:, 0], flow[:, 1])).abs().max()) <= 1e-5
 
@@ -354,9 +357,9 @@ def test_train_step_on_card_matches_cpu(no_tf32, monkeypatch, cudnn, grad_tol):
 def test_kernel_wrappers_check_their_inputs(cuda):
     img = torch.rand((2, 8, 8), device=cuda)
     with pytest.raises(ValueError):
-        bilinear_warp(img, img.double(), img, 8)
+        bilinear_warp(img, img.double(), img)
     with pytest.raises(ValueError):
-        bilinear_warp(img, img.transpose(1, 2), img, 8)
+        bilinear_warp(img, img.transpose(1, 2), img)
     with pytest.raises(ValueError):
         bilinear_warp_vjp(img, img, img, img.double())
     with pytest.raises(ValueError):
@@ -833,6 +836,7 @@ def test_refractory_strips_match_plain_and_k1(cuda, F, H, W, S):
     per strip; the strips' grids fit the card together (odd and padded
     shapes, 8 strips, and 720x1280 in the global-state form)."""
     from v2e_tpu_torch.ops.kernels.emulator_scan import (
+        _device_grids,
         refractory_scan_strips,
         refractory_scan_strips_plain,
     )
@@ -845,7 +849,8 @@ def test_refractory_strips_match_plain_and_k1(cuda, F, H, W, S):
     torch.cuda.synchronize()
     assert n_launches(refractory_scan_strips) == n0 + S
     want = refractory_scan_strips_plain(strips)
-    grids = refractory_scan_strips.last_call[1]
+    grids = _device_grids(tuple(a[0].shape[1] * a[0].shape[2] for a in strips),
+                          tuple(a[0].device.index for a in strips))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert all(g.regs for g in grids) == (H * W <= 200_000)
     if grids[0].regs:

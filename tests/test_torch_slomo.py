@@ -95,11 +95,11 @@ def test_pre_and_postprocess_resize():
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     interp = rng.normal(0, 0.2, (2, 3, 1, 64, 96)).astype(np.float32)
     want = np.asarray(jslomo.postprocess_frames(jnp.asarray(interp), 70, 100, False))
-    got = tslomo.postprocess_frames(torch.from_numpy(interp), 70, 100, False).numpy()
+    got = tslomo._levels(torch.from_numpy(interp), 70, 100).numpy()
     # 1e-5 on the normalised scale is 255e-5 on the 0-255 scale
     np.testing.assert_allclose(got / 255.0, want / 255.0, rtol=0, atol=1e-5)
     q_want = np.asarray(jslomo.postprocess_frames(jnp.asarray(interp), 70, 100, True))
-    q_got = tslomo.postprocess_frames(torch.from_numpy(interp), 70, 100, True).numpy()
+    q_got = tslomo.postprocess_frames(torch.from_numpy(interp), 70, 100).numpy()
     assert np.mean(q_got == q_want) > 0.999 and np.abs(q_got - q_want).max() <= 1.0
 
 

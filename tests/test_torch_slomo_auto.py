@@ -1,11 +1,12 @@
-"""The port's auto-upsampling and warp-window decisions against the JAX
+"""The port's auto-upsampling and warp-kernel decisions against the JAX
 package's, for the same flows: SuperSloMo.choose_upsampling (U =
-ceil(max flow), floored by an explicit factor, bucketed), _choose_disp
-(auto and U > 32 -> window U, else the 8/16/32 px buckets of the chunk's
-max flow) and FusedConverter.note_collected (the one-chunk lookahead).
-The JAX engine is built with use_pallas_warp=True, the TPU's setting,
-under which its window buckets apply (the port's warps always run its
-kernels' code).  Decisions are integers: they must be equal.
+ceil(max flow), floored by an explicit factor, bucketed), the warp window
+(auto and U > 32 -> window U and K4, else K3) and
+FusedConverter.note_collected (the one-chunk lookahead).  The JAX engine
+is built with use_pallas_warp=True, the TPU's setting, under which its
+_choose_disp buckets the window of K3 to 8, 16 or 32 px; the port's K3
+takes no window, so what must be equal is the kernel each side picks, and
+K4's window.
 """
 import os
 
@@ -33,6 +34,12 @@ def flow_with_speed(speed, seed=0):
     return f
 
 
+def kernel(window):
+    """The warp kernel a window selects (models/backwarp.py::warp_planar),
+    with K4's window."""
+    return ("K4", window) if window > 32 else ("K3",)
+
+
 def engines(auto, factor):
     j = jslomo.SuperSloMo(GOLDEN, auto, factor, use_pallas_warp=True, compute_dtype="float32")
     t = tslomo.SuperSloMo(GOLDEN, auto, factor, compute_dtype="float32", device="cpu")
@@ -54,7 +61,7 @@ def test_upsampling_and_window_choices_match(auto, factor):
         uj = j.choose_upsampling(jnp.asarray(f))
         ut = t.choose_upsampling(torch.from_numpy(f))
         assert ut == uj, speed
-        assert t._choose_disp(torch.from_numpy(f), ut) == j._choose_disp(jnp.asarray(f), uj), speed
+        assert kernel(t.warp_window(ut)) == kernel(j._choose_disp(jnp.asarray(f), uj)), speed
     assert t.avg_upsampling_factor == j.avg_upsampling_factor
 
 
@@ -66,4 +73,4 @@ def test_lookahead_matches(auto, factor):
     for speed in MAX_SPEEDS:
         fj.note_collected({"max_flow": float(np.float32(speed))})
         ft.note_collected({"max_flow": float(np.float32(speed))})
-        assert (ft._next_u, ft._disp) == (fj._next_u, fj._disp), speed
+        assert (ft._next_u, kernel(ft.window)) == (fj._next_u, kernel(fj._disp)), speed

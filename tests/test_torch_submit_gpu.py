@@ -7,6 +7,9 @@ Marked `gpu`; each test skips when no CUDA device is present.  On an H100:
   with K1 (the CLI's default refractory period) and with K2 (the noisy
   preset), at a small shape and at the benchmark's DAVIS346 shape (8
   pairs, U = 10, base-32 bf16 UNets);
+* so does a staged chunk at fixed U, its slices consumed, after one
+  warm-up chunk (which fills the resize's weight cache): its warp window
+  follows from U alone, with no read of the flow;
 * twelve fused chunks submitted back to back, the source's numpy buffer
   overwritten as soon as each submit returns and the chunks fetched by
   ChunkPipeline's threads, give the events of the same chunks with the
@@ -69,6 +72,21 @@ def test_steady_fused_chunk_makes_no_host_sync(cuda, preset, shape):
     assert handle.get("fused")
     events, _, _ = em.collect(handle)
     assert events.shape[0] > 0
+
+
+def test_fixed_u_staged_chunk_makes_no_host_sync(cuda):
+    fc, _ = converter(None)
+    (w0, _), (w1, _) = windows(2)
+    for _ in fc.slomo.interpolate_batch_slices(w0, H, W)[1]:
+        pass
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        u, slices = fc.slomo.interpolate_batch_slices(w1, H, W)
+        frames = [f for f, _ in slices]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert u == U and sum(f.shape[0] for f in frames) == B * U
 
 
 def convert(preset, overwrite: bool):

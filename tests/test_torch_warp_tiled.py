@@ -172,20 +172,21 @@ def test_half_to_even_tile_base():
 
 
 def test_warp_dispatch_by_window(monkeypatch):
-    """models/backwarp.py: max_disp <= 32 goes to K3's wrapper, larger
-    windows to K4's with max_base rounded up to a multiple of 128."""
+    """models/backwarp.py: max_disp <= 32 goes to K3's wrapper (which takes
+    no window), larger windows to K4's with max_base rounded up to a
+    multiple of 128."""
     # the module: v2e_tpu_torch.models exports the function `backwarp` under its name
     bw = importlib.import_module("v2e_tpu_torch.models.backwarp")
 
     calls = []
-    monkeypatch.setattr(bw, "bilinear_warp", lambda img, u, v, d: calls.append(("k3", d)) or img)
+    monkeypatch.setattr(bw, "bilinear_warp", lambda img, u, v: calls.append(("k3",)) or img)
     monkeypatch.setattr(bw, "warp_tiled", lambda img, u, v, mb: calls.append(("k4", mb)) or img)
     img = torch.zeros(2, 8, 16)
     flow = torch.zeros(2, 2, 8, 16)
     for d in (8, 32, 33, 96, 128, 129, 256):
         warp_planar(img, flow[:, 0], flow[:, 1], d)
     warp(img[:, None], flow, 64)
-    assert calls == [("k3", 8), ("k3", 32), ("k4", 128), ("k4", 128), ("k4", 128),
+    assert calls == [("k3",), ("k3",), ("k4", 128), ("k4", 128), ("k4", 128),
                      ("k4", 256), ("k4", 256), ("k4", 128)]
     assert [max_base_for(d) for d in (33, 128, 129, 192, 256)] == [128, 128, 256, 256, 256]
 

@@ -11,7 +11,7 @@ import logging
 import os
 from typing import Tuple
 
-from v2e_tpu_torch.models.unet import DENSE_LAYOUTS, fold_levels
+from v2e_tpu_torch.models.unet import UNET_CONV
 
 logger = logging.getLogger(__name__)
 
@@ -162,10 +162,7 @@ def v2e_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                                   "the port's warps compute in float32, so "
                                   "every value gives the same result")
     slomo_group.add_argument("--unet_conv", type=str, default="auto",
-                             choices=["auto", "packedfold", "packedfold45",
-                                      "packed", "fold", "fold45",
-                                      "packedz", "packedup", "blocked",
-                                      "dense"],
+                             choices=list(UNET_CONV),
                              help="UNet conv form (the same function in "
                                   "every form): packedz runs the k=3 up-tail "
                                   "layers with 32-64 output channels through "
@@ -340,22 +337,12 @@ def v2e_check_dvs_exposure_args(args):
 
 
 def log_layout_flags(args) -> None:
-    """Say once what the port runs for --unet_conv and --warp_precision:
-    packedz sends the up-tail layers to K5, the fold forms fold the up
-    levels' upsample into their conv, packed, packedup and blocked are TPU
-    layouts that run the dense UNet, and the warps compute in float32 for
-    every --warp_precision."""
-    form = args.unet_conv
-    if form in DENSE_LAYOUTS:
-        logger.info(f"--unet_conv {form} is a TPU layout of the dense UNet; "
-                    "the port runs the dense form")
-    elif form == "packedz":
-        logger.info("--unet_conv packedz: the k=3 up-tail layers with 32-64 output "
-                    "channels run through the K5 conv kernel, the others dense")
-    elif "fold" in form:
-        levels = ", ".join(f"up{i}" for i in sorted(fold_levels(form)))
-        logger.info(f"--unet_conv {form}: the upsample and conv1 of {levels} run "
-                    "as one folded half-res conv, the others dense")
+    """Say once what the port runs for --unet_conv (the name's note in
+    models/unet.py's UNET_CONV) and --warp_precision (the warps compute in
+    float32 for every setting)."""
+    note = UNET_CONV[args.unet_conv][1]
+    if note:
+        logger.info(f"--unet_conv {args.unet_conv}: {note}")
     if args.warp_precision != "1pass":
         logger.info(f"--warp_precision {args.warp_precision}: the port's warps "
                     "compute in float32 for every setting")

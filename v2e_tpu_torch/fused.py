@@ -20,7 +20,10 @@ import torch
 
 from v2e_tpu_torch import tracing
 from v2e_tpu_torch.emulator.core import draw_chunk_noise, emulate_and_compact_impl
+from v2e_tpu_torch.models.backwarp import K3_MAX_DISP
 from v2e_tpu_torch.models.slomo import (
+    MAX_GROUP,
+    MAX_OUT_FRAMES,
     SuperSloMo,
     bucket_upsampling_factor,
     interpolate_pairs,
@@ -49,22 +52,22 @@ def fused_chunk(
 ):
     """frames u8/f32[B+1,H,W] + rel_times f32[B*U] -> (state, outs, packed).
 
-    statics = (H, W, U, max_group, warp_max_disp, quantize, conv_impl),
-    conv_impl the UNets' conv form (models/unet.py).  `draws`
-    overrides the emulator's random draws (tests); by default they come
-    from `generator`.  packed["scalars"] ends with the chunk's max flow
-    magnitude (float32 bits).
+    statics = (H, W, U, max_group, window, form): the warp window
+    (models/backwarp.py::warp_planar) and the UNets' conv form
+    (models/unet.py).  `draws` overrides the emulator's random draws
+    (tests); by default they come from `generator`.  packed["scalars"] ends
+    with the chunk's max flow magnitude (float32 bits).
     """
-    H, W, U, max_group, warp_max_disp, quantize, conv_impl = statics
+    H, W, U, max_group, window, form = statics
     x = preprocess_frames(frames, snap32(H), snap32(W))
     I0, I1 = x[:-1], x[1:]
     with tracing.span("slomo.flow_unet", tracing.DEVICE, x.device):
-        flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
+        flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), form)
     interp = interpolate_pairs(
-        flow_net, interp_net, I0, I1, U, max_group, warp_max_disp,
-        flow_out=flow_out, conv_impl=conv_impl,
+        flow_net, interp_net, I0, I1, U, max_group, window,
+        flow_out=flow_out, form=form,
     )
-    dvs = postprocess_frames(interp, H, W, quantize)
+    dvs = postprocess_frames(interp, H, W)
     if draws is None:
         with tracing.span("emulator.precore", tracing.DEVICE, dvs.device):
             draws = draw_chunk_noise(cfg, dvs.shape[0], (H, W), generator, dvs.device)
@@ -91,16 +94,16 @@ class FusedConverter:
     returns its max flow in the packed scalars, and the next chunk's U is
     the bucketed ceil of it (`note_collected`), the formula the staged path
     applies to the current chunk's flow (SuperSloMo.choose_upsampling).
-    Each collected chunk's max flow also sets the next warp window, within
-    the 8/16/32 px buckets, so fused chunks run K3 once a fused chunk has
-    been collected; before that they take the staged chunk's window, which
-    is U (K4) when auto-upsampling chose U > 32, as in the JAX package.
+    The warp window of fused chunks (`window`) is K3_MAX_DISP, so they run
+    K3, except between the first staged chunk and the first collected
+    fused chunk: there they take the staged chunk's window, which is U (K4)
+    when auto-upsampling chose U > 32, as in the JAX package.
     """
 
     def __init__(self, slomo: SuperSloMo, emulator):
         self.slomo = slomo
         self.emulator = emulator
-        self._disp: Optional[int] = None  # lookahead warp window
+        self.window = K3_MAX_DISP  # fused chunks' warp window
         self._next_u: Optional[int] = None  # lookahead auto-U bucket
         self.n_staged = 0  # chunks submitted the staged way
 
@@ -128,7 +131,7 @@ class FusedConverter:
             return (pair_index + rel) * src_frame_interval
 
         if (self.emulator.state is None or U is None
-                or n_pairs * U > slomo.max_out_frames):
+                or n_pairs * U > MAX_OUT_FRAMES):
             handle, U = self._submit_staged(src_frames, make_times)
             return handle, U, make_times(U)
         times = make_times(U)
@@ -140,16 +143,16 @@ class FusedConverter:
     def _submit_staged(self, src_frames, make_times):
         """The staged path: the first chunk (the emulator's state starts
         from its first interpolated frame; auto-U needs the chunk's own
-        flow) or a chunk above max_out_frames (pair slices).  Returns
+        flow) or a chunk above MAX_OUT_FRAMES (pair slices).  Returns
         (handle, U)."""
         em, slomo = self.emulator, self.slomo
         H, W = em.output_height, em.output_width
         if H is None:
             H, W = src_frames.shape[1:]
         interp, U = slomo.interpolate_batch(src_frames, H, W)
+        if self.n_staged == 0:
+            self.window = slomo.warp_window(U)
         self.n_staged += 1
-        if self._disp is None:
-            self._disp = slomo.last_disp or slomo.warp_max_disp
         if slomo.auto_upsample:
             # staged handles carry no max-flow scalar: refresh the lookahead
             # from this chunk's own choice
@@ -159,8 +162,7 @@ class FusedConverter:
     def _submit_fused(self, src_frames, times: np.ndarray, U: int):
         em, slomo = self.emulator, self.slomo
         H, W = em.output_height, em.output_width
-        disp = self._disp if (slomo.adaptive_disp and self._disp) else slomo.warp_max_disp
-        statics = (H, W, U, slomo.max_group, disp, True, slomo.conv_impl)
+        statics = (H, W, U, MAX_GROUP, self.window, slomo.form)
         return em.submit_batch_fused(
             fused_chunk, statics, slomo.flow_net, slomo.interp_net,
             src_frames, times,
@@ -168,8 +170,9 @@ class FusedConverter:
 
     def note_collected(self, handle) -> None:
         """Feed the collected chunk's max flow into the next chunk's U
-        bucket (auto mode) and warp window.  Call after the emulator's
-        collect (or collect_fetch) of `handle`."""
+        bucket (auto mode); a finite one also returns the warp window to
+        K3_MAX_DISP.  Call after the emulator's collect (or collect_fetch)
+        of `handle`."""
         mf = handle.get("max_flow")
         if mf is None or not math.isfinite(mf):
             return
@@ -179,9 +182,4 @@ class FusedConverter:
             if slomo.upsampling_factor is not None:
                 u = max(u, slomo.upsampling_factor)
             self._next_u = bucket_upsampling_factor(max(u, 2))
-        need = mf * 1.25 + 2.0
-        for b in SuperSloMo.DISP_BUCKETS:
-            if need <= b <= slomo.warp_max_disp:
-                self._disp = b
-                return
-        self._disp = slomo.warp_max_disp
+        self.window = K3_MAX_DISP

@@ -2,9 +2,9 @@
 
 Matches torch ``grid_sample(img, grid)`` with ``align_corners=False`` and
 zero padding, as the original SuperSloMo's backWarp builds its grid: the
-sample lands on ``p + flow - 0.5``.  The warp window `max_disp` that
-SuperSloMo._choose_disp picks for a chunk selects the kernel, as in the
-JAX package:
+sample lands on ``p + flow - 0.5``.  The warp window `max_disp` of a
+chunk (SuperSloMo.warp_window, FusedConverter.window) selects the kernel,
+here and nowhere else, as in the JAX package:
 
 * ``max_disp <= 32``: K3 (ops/kernels/warp.py), a 4-tap gather that equals
   `backwarp` for any flow;
@@ -50,7 +50,7 @@ def backwarp_grad(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out.reshape(n, c, H, W)
 
 
-def warp(img: torch.Tensor, flow: torch.Tensor, max_disp: int = 32) -> torch.Tensor:
+def warp(img: torch.Tensor, flow: torch.Tensor, max_disp: int = K3_MAX_DISP) -> torch.Tensor:
     """Backwarp [N,C,H,W] images by [N,2,H,W] flow through the kernel that
     `max_disp` selects."""
     n, c, H, W = img.shape
@@ -62,10 +62,10 @@ def warp(img: torch.Tensor, flow: torch.Tensor, max_disp: int = 32) -> torch.Ten
 
 
 def warp_planar(
-    img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, max_disp: int = 32
+    img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, max_disp: int = K3_MAX_DISP
 ) -> torch.Tensor:
     """`warp` for single-plane images [N,H,W] with separate flow planes."""
     img, u, v = img.contiguous(), u.contiguous(), v.contiguous()
     if int(max_disp) <= K3_MAX_DISP:
-        return bilinear_warp(img, u, v, max_disp)
+        return bilinear_warp(img, u, v)
     return warp_tiled(img, u, v, max_base_for(max_disp))

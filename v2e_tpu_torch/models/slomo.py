@@ -16,31 +16,31 @@ about 1 px per interpolated frame, rounded up into the bucket ladder
 `UPSAMPLE_BUCKETS` (finer timestamps than asked, never coarser), and
 floored by an explicit --timestamp_resolution.  When that U exceeds the
 32 px warp cap, the chunk's warp window widens to U and the warps go to
-K4 (`_choose_disp`).  The original v2e's file API rides on
-`interpolate_batch`: `interpolate` reads .npy frames from a folder and
-writes numbered PNGs, and `get_interpolated_timestamps` spreads real
-timestamps U-fold.
+K4 (`SuperSloMo.warp_window`, decided from U alone).  The original v2e's
+file API rides on `interpolate_batch`: `interpolate` reads .npy frames
+from a folder and writes numbered PNGs, and `get_interpolated_timestamps`
+spreads real timestamps U-fold.
 """
 from __future__ import annotations
 
 import logging
 import math
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from v2e_tpu_torch import tracing
 from v2e_tpu_torch.device import resolve_device, scalar, upload
-from v2e_tpu_torch.models.backwarp import warp_planar
+from v2e_tpu_torch.models.backwarp import K3_MAX_DISP, warp_planar
 from v2e_tpu_torch.models.convert_ckpt import (
     from_jax_params,
     init_random_slomo_params,
     load_slomo_params,
 )
 from v2e_tpu_torch.models.resize import resize
-from v2e_tpu_torch.models.unet import UNet, fold_levels, unet_apply
+from v2e_tpu_torch.models.unet import DENSE, UNet, UNetForm, unet_apply, unet_form
 
 logger = logging.getLogger(__name__)
 
@@ -49,6 +49,12 @@ MEAN = 0.428
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
+
+# the most UNet batch rows an interpolation group fills (`_group_split`)
+MAX_GROUP = 96
+# the most interpolated frames per device call: at very high U a whole
+# chunk would take GBs, so pairs are emitted in slices
+MAX_OUT_FRAMES = 4096
 
 # Bucket ladder of the data-dependent auto-upsampling factor: ~1.5x steps,
 # never more than 50 % extra interpolated frames.
@@ -100,21 +106,23 @@ def interpolate_pairs(
     I0: torch.Tensor,
     I1: torch.Tensor,
     upsampling_factor: int,
-    max_group: int = 96,
-    warp_max_disp: int = 32,
+    max_group: int = MAX_GROUP,
+    window: int = K3_MAX_DISP,
     flow_out: Optional[torch.Tensor] = None,
-    conv_impl: str = "dense",
+    form: Union[str, UNetForm] = DENSE,
 ) -> torch.Tensor:
     """Interpolate U frames between each pair.
 
     I0, I1: [B,1,h,w] normalized (0-1 minus MEAN) frame pairs.  Returns
-    [B, U, 1, h, w] normalized frames at t = (i + 0.5) / U.  Both UNets run
-    in the conv form `conv_impl` (models/unet.py).
+    [B, U, 1, h, w] normalized frames at t = (i + 0.5) / U.  The warps run
+    the kernel that `window` selects (models/backwarp.py::warp_planar), and
+    both UNets the conv `form` (models/unet.py).
     """
     U = upsampling_factor
+    form = unet_form(form)
     if flow_out is None:
         with tracing.span("slomo.flow_unet", tracing.DEVICE, I0.device):
-            flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), conv_impl)
+            flow_out = unet_apply(flow_net, torch.cat([I0, I1], dim=1), form)
     B = I0.shape[0]
     P0, P1 = I0[:, 0], I1[:, 0]
     u01, v01 = flow_out[:, 0], flow_out[:, 1]
@@ -147,7 +155,7 @@ def interpolate_pairs(
         ut1 = c * u01g + d * u10g
         vt1 = c * v01g + d * v10g
         g01 = warp_planar(
-            P01, torch.cat([ut0, ut1]), torch.cat([vt0, vt1]), warp_max_disp
+            P01, torch.cat([ut0, ut1]), torch.cat([vt0, vt1]), window
         )
         g0, g1 = g01[:n], g01[n:]
         # channel order of the original model's torch.cat, for its weights
@@ -156,7 +164,7 @@ def interpolate_pairs(
         )
         dtype = next(interp_net.parameters()).dtype
         with tracing.span("slomo.refine_unet", tracing.DEVICE, I0.device):
-            intrp = interp_net(stack.to(dtype), conv_impl).to(torch.float32)
+            intrp = interp_net(stack.to(dtype), form).to(torch.float32)
         ut0f = intrp[:, 0] + ut0
         vt0f = intrp[:, 1] + vt0
         ut1f = intrp[:, 2] + ut1
@@ -164,7 +172,7 @@ def interpolate_pairs(
         V0 = torch.sigmoid(intrp[:, 4])
         V1 = 1.0 - V0
         g01f = warp_planar(
-            P01, torch.cat([ut0f, ut1f]), torch.cat([vt0f, vt1f]), warp_max_disp
+            P01, torch.cat([ut0f, ut1f]), torch.cat([vt0f, vt1f]), window
         )
         g0f, g1f = g01f[:n], g01f[n:]
         w0 = (1.0 - t) * V0
@@ -182,17 +190,19 @@ def preprocess_frames(frames: torch.Tensor, h32: int, w32: int) -> torch.Tensor:
     return resize(x, (h32, w32), "lanczos3")[:, None]
 
 
-def postprocess_frames(
-    interp: torch.Tensor, H: int, W: int, quantize: bool = True
-) -> torch.Tensor:
+def _levels(interp: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """[B,U,1,h,w] normalized -> [B*U,H,W] 0-255 float32, time-ordered:
-    bilinear resize back to the output size, then (optionally) rounding to
-    8-bit levels like the original's PNG round trip."""
+    bilinear resize back to the output size, unrounded."""
     B, U = interp.shape[:2]
     x = interp.reshape(B * U, interp.shape[3], interp.shape[4])
     x = resize(x, (H, W), "bilinear")
-    x = torch.clamp((x + MEAN) * 255.0, 0.0, 255.0)
-    return torch.round(x) if quantize else x
+    return torch.clamp((x + MEAN) * 255.0, 0.0, 255.0)
+
+
+def postprocess_frames(interp: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """`_levels` rounded to 8-bit levels, like the original's PNG round
+    trip."""
+    return torch.round(_levels(interp, H, W))
 
 
 class SuperSloMo:
@@ -204,12 +214,11 @@ class SuperSloMo:
     FileNotFoundError unless `allow_random` is set; then random weights are
     used with a warning.
 
-    `conv_impl` is the UNets' conv form (models/unet.py, the CLI's
-    --unet_conv); "auto" runs dense, as the JAX package's auto does off its
-    TPU.  No faster default is chosen without a benchmark cell.
+    `conv_impl` is a --unet_conv name, resolved once to the UNets' conv
+    form (`self.form`, models/unet.py's UNET_CONV); "auto" runs dense, as
+    the JAX package's auto does off its TPU.  No faster default is chosen
+    without a benchmark cell.
     """
-
-    DISP_BUCKETS = (8, 16, 32)
 
     def __init__(
         self,
@@ -218,10 +227,6 @@ class SuperSloMo:
         upsampling_factor: Optional[int] = None,
         batch_size: int = 8,
         compute_dtype: str = "bfloat16",
-        max_group: int = 96,
-        warp_max_disp: int = 32,
-        max_out_frames: int = 4096,
-        adaptive_disp: bool = True,
         allow_random: bool = False,
         device: Optional[str] = None,
         seed: int = 0,
@@ -236,19 +241,11 @@ class SuperSloMo:
                 "when auto_upsample=False"
             )
         self.device = resolve_device(device)
-        self.conv_impl = "dense" if conv_impl == "auto" else conv_impl
-        fold_levels(self.conv_impl)  # raises on an unknown form
+        self.form = unet_form(conv_impl)
         self.auto_upsample = auto_upsample
         self.upsampling_factor = upsampling_factor
         self.batch_size = batch_size
         self.compute_dtype = _DTYPES[compute_dtype]
-        self.max_group = max_group
-        self.warp_max_disp = warp_max_disp
-        self.adaptive_disp = adaptive_disp
-        # bound on interpolated frames per device call: at very high U a
-        # whole chunk would take GBs, so pairs are emitted in slices
-        self.max_out_frames = max_out_frames
-        self.last_disp: Optional[int] = None
         self.last_upsampling_factor: Optional[int] = None
         self.upsampling_sum = 0
         self.upsampling_samples = 0
@@ -295,65 +292,49 @@ class SuperSloMo:
             return float(self.upsampling_factor or 0)
         return self.upsampling_sum / self.upsampling_samples
 
-    def _choose_disp(self, flow_out: torch.Tensor, U: int) -> int:
-        """The warp window for this chunk.  In auto mode a U above the
-        32 px cap widens the window to U, which sends the warps to K4.
-        Otherwise the chunk's max flow with 1.25x + 2 px headroom, bucketed
-        to 8, 16 or 32 px; K3 does not clamp to it, so below 32 px the
-        window changes no output."""
-        max_disp = self.warp_max_disp
-        if self.auto_upsample and U > max_disp:
-            self.last_disp = U
-            return U
-        if self.adaptive_disp:
-            need = float(max_flow_speed(flow_out)) * 1.25 + 2.0
-            for b in self.DISP_BUCKETS:
-                if need <= b <= max_disp:
-                    self.last_disp = b
-                    return b
-        self.last_disp = max_disp
-        return max_disp
+    def warp_window(self, U: int) -> int:
+        """The warp window of a chunk at U: U when auto-upsampling chose
+        U > K3_MAX_DISP, which sends the warps to K4, else K3_MAX_DISP
+        (K3, which does not clamp the flow to it)."""
+        return U if self.auto_upsample and U > K3_MAX_DISP else K3_MAX_DISP
 
     def _flow(self, frames, H: int, W: int):
         frames = upload(frames, self.device)
         x = preprocess_frames(frames, snap32(H), snap32(W))
         I0, I1 = x[:-1], x[1:]
-        flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1), self.conv_impl)
+        flow_out = unet_apply(self.flow_net, torch.cat([I0, I1], dim=1), self.form)
         return I0, I1, flow_out
 
-    def interpolate_batch(
-        self, frames, H: int, W: int, quantize: bool = True
-    ) -> Tuple[torch.Tensor, int]:
+    def interpolate_batch(self, frames, H: int, W: int) -> Tuple[torch.Tensor, int]:
         """Interpolate a chunk of source frames [N,H,W] (0-255).
 
         Returns (interp [(N-1)*U, H, W] 0-255 float32 on the device, U).
         Output frame k*U+i sits at source time k + i/U; the last source
         frame is not included (it seeds the next chunk).
         """
-        U, slices = self.interpolate_batch_slices(frames, H, W, quantize)
+        U, slices = self.interpolate_batch_slices(frames, H, W)
         parts = [s for s, _ in slices]
         return (parts[0] if len(parts) == 1 else torch.cat(parts)), U
 
-    def interpolate_batch_slices(self, frames, H: int, W: int, quantize: bool = True):
+    def interpolate_batch_slices(self, frames, H: int, W: int):
         """Like `interpolate_batch`, but returns (U, generator of
         (frames [n*U,H,W], pair offset)) in slices of at most
-        `max_out_frames` frames, so device memory stays flat at very high
+        MAX_OUT_FRAMES frames, so device memory stays flat at very high
         U."""
         I0, I1, flow_out = self._flow(frames, H, W)
         U = self.choose_upsampling(flow_out)
-        max_disp = self._choose_disp(flow_out, U)
-        return U, self._emit_slices(I0, I1, flow_out, U, max_disp, H, W, quantize)
+        return U, self._emit_slices(I0, I1, flow_out, U, H, W)
 
-    def _emit_slices(self, I0, I1, flow_out, U, max_disp, H, W, quantize=True):
+    def _emit_slices(self, I0, I1, flow_out, U, H, W):
         B = I0.shape[0]
-        pair_slice = max(1, self.max_out_frames // U)
+        pair_slice = max(1, MAX_OUT_FRAMES // U)
         for s in range(0, B, pair_slice):
             interp = interpolate_pairs(
                 self.flow_net, self.interp_net, I0[s: s + pair_slice],
-                I1[s: s + pair_slice], U, self.max_group, max_disp,
-                flow_out=flow_out[s: s + pair_slice], conv_impl=self.conv_impl,
+                I1[s: s + pair_slice], U, MAX_GROUP, self.warp_window(U),
+                flow_out=flow_out[s: s + pair_slice], form=self.form,
             )
-            yield postprocess_frames(interp, H, W, quantize), s
+            yield postprocess_frames(interp, H, W), s
 
     # ------------------------------------------------------------------
     def interpolate(

@@ -9,25 +9,27 @@ with b = `base` (32 = the original SuperSloMo).  Submodule names follow the
 original torch model, so its state-dict keys ('down1.conv1.weight', ...)
 load unchanged.
 
-Conv forms (`conv_impl`, the CLI's --unet_conv), as in the JAX package:
-* dense: every conv is F.conv2d + LeakyReLU, in the module's dtype.
-* packedz: the k=3 layers with 32 <= Co <= 64 of the up path and conv3 run
-  through K5 (ops/kernels/conv3.py), whose bias and activation are applied
-  in float32 and rounded once; every other layer is dense.  At base 32
-  that is up4 and up5, at base 8 up2 and up3.
-* fold, fold45, packedfold, packedfold45: each bilinear x2 upsample and
-  the up level's conv1 after it become one half-resolution conv with the
-  four output phases on the channel axis (`upconv_fold`), on every up
-  level or (suffix 45) on up4 and up5; every other layer is dense.
-* packed, packedup, blocked: TPU layouts of the dense function (column
-  packing that fills the TPU's 128 lanes); they run dense.
+Conv forms: the CLI's --unet_conv takes ten names, and `UNET_CONV` maps
+each to one of the four forms the port runs (`UNetForm`):
+* DENSE (dense, auto, and the TPU layouts packed, packedup and blocked,
+  column packings that fill the TPU's 128 lanes): every conv is F.conv2d
+  + LeakyReLU, in the module's dtype.
+* PACKEDZ (packedz): the k=3 layers with 32 <= Co <= 64 of the up path
+  and conv3 run through K5 (ops/kernels/conv3.py), whose bias and
+  activation are applied in float32 and rounded once; every other layer is
+  dense.  At base 32 that is up4 and up5, at base 8 up2 and up3.
+* FOLD (fold, packedfold) and FOLD45 (fold45, packedfold45): each bilinear
+  x2 upsample and the up level's conv1 after it become one half-resolution
+  conv with the four output phases on the channel axis (`upconv_fold`), on
+  every up level or on up4 and up5; every other layer is dense.
 The fold is plain F.conv2d, as the JAX package left it to XLA.  Every
 other up level's bilinear x2 is K6 (ops/kernels/upsample.py), its VJP in
 training.
 """
 from __future__ import annotations
 
-from typing import FrozenSet, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, FrozenSet, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +40,49 @@ from v2e_tpu_torch.ops.kernels.conv3 import (
 )
 from v2e_tpu_torch.ops.kernels.upsample import Upsample2xFn, upsample2x_along
 
-CONV_FORMS = ("dense", "packedz", "fold", "fold45", "packedfold", "packedfold45",
-              "packed", "packedup", "blocked")
-# the forms that are TPU layouts of the dense function
-DENSE_LAYOUTS = ("packed", "packedup", "blocked")
+
+@dataclass(frozen=True)
+class UNetForm:
+    """A conv form the port runs: whether K5 takes the up tail (`lane`),
+    and which up levels fold their upsample into conv1 (`fold`)."""
+
+    lane: bool = False
+    fold: FrozenSet[int] = frozenset()
+
+
+DENSE = UNetForm()
+PACKEDZ = UNetForm(lane=True)
+FOLD = UNetForm(fold=frozenset(range(1, 6)))
+FOLD45 = UNetForm(fold=frozenset((4, 5)))
+
+_TPU_LAYOUT = "a TPU layout of the dense UNet; the port runs the dense form"
+_FOLDS = "the upsample and conv1 of {} run as one folded half-res conv, the others dense"
+# each --unet_conv name: (the form the port runs, what args.log_layout_flags
+# says of it; nothing for the two names that say dense themselves).  "auto"
+# runs dense, as the JAX package's auto does off its TPU.
+UNET_CONV: Dict[str, Tuple[UNetForm, str]] = {
+    "auto": (DENSE, ""),
+    "dense": (DENSE, ""),
+    "packed": (DENSE, _TPU_LAYOUT),
+    "packedup": (DENSE, _TPU_LAYOUT),
+    "blocked": (DENSE, _TPU_LAYOUT),
+    "packedz": (PACKEDZ, "the k=3 up-tail layers with 32-64 output channels run "
+                         "through the K5 conv kernel, the others dense"),
+    "fold": (FOLD, _FOLDS.format("up1, up2, up3, up4, up5")),
+    "packedfold": (FOLD, _FOLDS.format("up1, up2, up3, up4, up5")),
+    "fold45": (FOLD45, _FOLDS.format("up4, up5")),
+    "packedfold45": (FOLD45, _FOLDS.format("up4, up5")),
+}
+
+
+def unet_form(form: Union[str, UNetForm]) -> UNetForm:
+    """The form a --unet_conv name runs (a form is returned as it is);
+    raises on an unknown name."""
+    if isinstance(form, UNetForm):
+        return form
+    if form not in UNET_CONV:
+        raise ValueError(f"unknown conv form {form!r}; one of {tuple(UNET_CONV)}")
+    return UNET_CONV[form][0]
 
 
 def unet_conv_specs(
@@ -62,18 +103,6 @@ def unet_conv_specs(
         specs.append((f"up{i}.conv2", 2 * co, co, 3))
     specs.append(("conv3", b, out_ch, 3))
     return specs
-
-
-def fold_levels(conv_impl: str) -> FrozenSet[int]:
-    """The up levels a form folds: "fold"/"packedfold" all five, a digit
-    suffix ("fold45") those levels, any other form none."""
-    if conv_impl not in CONV_FORMS:
-        raise ValueError(f"unknown conv form {conv_impl!r}; one of {CONV_FORMS}")
-    for prefix in ("packedfold", "fold"):
-        if conv_impl.startswith(prefix):
-            suffix = conv_impl[len(prefix):]
-            return frozenset(int(c) for c in suffix) if suffix else frozenset(range(1, 6))
-    return frozenset()
 
 
 def lane3_eligible(conv: nn.Conv2d) -> bool:
@@ -205,10 +234,9 @@ class UNet(nn.Module):
         return conv3x3_lane(xh, conv.weight, conv.bias_f32, 0.1,
                             packed=conv.packed_w).permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
-        fold = fold_levels(conv_impl)
+    def forward(self, x: torch.Tensor, form: UNetForm = DENSE) -> torch.Tensor:
         a = self._act
-        cb3 = self._lane if conv_impl == "packedz" else a
+        cb3 = self._lane if form.lane else a
         x = a(self.conv1, x)
         s1 = a(self.conv2, x)
         skips = [s1]
@@ -222,7 +250,7 @@ class UNet(nn.Module):
                 skips.append(x)
         for i in range(1, 6):
             blk = getattr(self, f"up{i}")
-            if i in fold:
+            if i in form.fold:
                 x = upconv_fold(x, blk.conv1, blk.fold_weight)
             else:
                 x = cb3(blk.conv1, _upsample2(x))
@@ -230,14 +258,15 @@ class UNet(nn.Module):
         return cb3(self.conv3, x)
 
 
-def unet_apply(net: UNet, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
+def unet_apply(net: UNet, x: torch.Tensor, form: Union[str, UNetForm] = DENSE) -> torch.Tensor:
     """Forward pass on NCHW input [N, in_ch, H, W], computed in the
-    module's dtype (e.g. bfloat16) in the form `conv_impl`, and returned in
-    x's dtype."""
+    module's dtype (e.g. bfloat16) in `form` (a `UNetForm` or a --unet_conv
+    name), and returned in x's dtype."""
     dtype = next(net.parameters()).dtype
-    return net(x.to(dtype), conv_impl).to(x.dtype)
+    return net(x.to(dtype), unet_form(form)).to(x.dtype)
 
 
-def unet_apply_io_nhwc(net: UNet, x: torch.Tensor, conv_impl: str = "dense") -> torch.Tensor:
+def unet_apply_io_nhwc(net: UNet, x: torch.Tensor,
+                       form: Union[str, UNetForm] = DENSE) -> torch.Tensor:
     """`unet_apply` on NHWC input [N, H, W, in_ch], returning NHWC."""
-    return unet_apply(net, x.permute(0, 3, 1, 2), conv_impl).permute(0, 2, 3, 1)
+    return unet_apply(net, x.permute(0, 3, 1, 2), form).permute(0, 2, 3, 1)

@@ -30,7 +30,6 @@ carried over: the kernel takes any H and W.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -114,13 +113,10 @@ def conv3x3_lane(
     None skips the activation.  `packed`: w already laid out for the kernel
     by `pack_conv3_weights(w, x.dtype)` (the UNet caches it); without it
     the wrapper packs w on each call.  Returns [N,H,W,Co] in x's type.
-    Every call is recorded in `conv3x3_lane.last_call`, ((N,H,W,Ci), Co),
-    and counted by shape in tracing's `shape_counter(N, H, W, Ci, Co)`;
-    kernel launches count in tracing's "launch.k5".
+    Every call counts by shape in tracing's `shape_counter(N, H, W, Ci,
+    Co)`; kernel launches count in tracing's "launch.k5".
     """
-    shape = (tuple(x.shape), int(w.shape[0]))
-    conv3x3_lane.last_call = shape
-    tracing.count(shape_counter(*shape[0], shape[1]))
+    tracing.count(shape_counter(*x.shape, int(w.shape[0])))
     if not x.is_cuda:
         return conv3x3_lane_plain(x, w, b, neg_slope)
     if x.dim() != 4 or x.dtype not in (torch.bfloat16, torch.float32):
@@ -161,27 +157,10 @@ def conv3x3_lane(
             raise ValueError(f"batch {N} x {Co} channels exceeds the launch grid")
         cip, cop = want[1], want[2]
     y = torch.empty((N, H, W, co_k), dtype=x.dtype, device=x.device)
-    fn = build.load("conv3x3").v2e_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(packed.data_ptr()),
-            ctypes.c_void_p(bf.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-            N, H, W, ci_k, co_k, cip, cop,
-            0.0 if neg_slope is None else float(neg_slope), int(neg_slope is not None),
-            int(is_bf16), 1, ctypes.c_void_p(stream),
-        )
-    build.check(err, "conv3x3_lane")
-    tracing.count("launch.k5")
+    build.call("v2e_conv3x3", x.device, x, packed, bf, y, N, H, W, ci_k, co_k, cip, cop,
+               0.0 if neg_slope is None else float(neg_slope), int(neg_slope is not None),
+               int(is_bf16), 1, counter="launch.k5")
     return y if co_k == Co else y[..., :Co].contiguous()
-
-
-# the last call's ((N,H,W,Ci), Co)
-conv3x3_lane.last_call = None
 
 SHAPE_COUNTER = "shape.k5."
 

@@ -134,8 +134,8 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def refractory_scan(
@@ -182,23 +182,9 @@ def refractory_scan(
     grid = refractory_grid(H * W, dev)
     # K, then the grid barrier's 2 x blocks 64-bit slots, zeroed
     k_buf = torch.zeros(F + F % 2 + 4 * grid[0], dtype=torch.int32, device=dev)
-    lib = build.load("emulator_scan")
-    fn = lib.v2e_refractory_scan
-    fn.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            _ptr(lp), _ptr(leak_delta), _ptr(shot_any), _ptr(pos_thres),
-            _ptr(neg_thres), _ptr(new_base), _ptr(new_mem), _ptr(dts),
-            _ptr(t_prevs), _ptr(k_buf), _ptr(counts), _ptr(i0),
-            F, H * W, float(refractory_period_s), ctypes.c_void_p(stream),
-        )
-    build.check(err, "refractory_scan")
-    tracing.count("launch.k1")
-    refractory_scan.last_call = ((F, H, W), grid)
+    build.call("v2e_refractory_scan", dev, lp, leak_delta, shot_any, pos_thres, neg_thres,
+               new_base, new_mem, dts, t_prevs, k_buf, counts, i0, F, H * W,
+               float(refractory_period_s), counter="launch.k1")
     return new_base, new_mem, counts, i0, k_buf[:F]
 
 
@@ -209,23 +195,13 @@ def refractory_grid(npix: int, device: torch.device) -> Tuple[int, int, int]:
     key = (npix, device.index)
     if key in _GRIDS:
         return _GRIDS[key]
-    fn = build.load("emulator_scan").v2e_refractory_scan_grid
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-    fn.restype = ctypes.c_int
     out = [ctypes.c_int(0) for _ in range(3)]
-    with torch.cuda.device(device):
-        err = fn(npix, *(ctypes.byref(v) for v in out))
-    build.check(err, "refractory_grid")
+    build.call("v2e_refractory_scan_grid", device, npix, *(ctypes.byref(v) for v in out))
     _GRIDS[key] = tuple(v.value for v in out)
     return _GRIDS[key]
 
 
 _GRIDS = {}
-
-
-# the last call's ([F,H,W], (blocks, threads, pixels per thread in
-# registers)); its launches, one per call, count in tracing's "launch.k1"
-refractory_scan.last_call = None
 
 
 def refractory_count_plain(lp, leak_delta, pos_thres, neg_thres, base, f) -> torch.Tensor:
@@ -375,27 +351,9 @@ def strips_plan(npixs: Sequence[int], devices: Sequence[int], sms: Dict[int, int
     return tuple(grids)
 
 
-@functools.cache
-def _strips_lib():
-    lib = build.load("emulator_scan")
-    lib.v2e_refractory_scan_strips.argtypes = [ctypes.c_void_p] * 13 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.v2e_refractory_strips_occupancy.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    lib.v2e_host_device_ptr.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)]
-    for fn in (lib.v2e_refractory_scan_strips, lib.v2e_refractory_strips_occupancy,
-               lib.v2e_host_device_ptr):
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _occupancy(device: int, regs: bool, threads: int) -> int:
     out = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = _strips_lib().v2e_refractory_strips_occupancy(int(regs), threads, ctypes.byref(out))
-    build.check(err, "refractory_scan_strips occupancy")
+    build.call("v2e_refractory_strips_occupancy", device, int(regs), threads, ctypes.byref(out))
     return out.value
 
 
@@ -422,8 +380,8 @@ class _Exchange:
         if device not in self.addr:
             out = ctypes.c_void_p(0)
             with torch.cuda.device(device):
-                err = _strips_lib().v2e_host_device_ptr(ctypes.c_void_p(self.words.data_ptr()),
-                                                        ctypes.byref(out))
+                err = build.entry("v2e_host_device_ptr")(self.words.data_ptr(),
+                                                         ctypes.byref(out))
             if err or not out.value:
                 raise RuntimeError(f"refractory_scan_strips: the exchange's pinned memory has "
                                    f"no address on cuda:{device} (CUDA error {err})")
@@ -515,7 +473,7 @@ def refractory_scan_strips(strips: Sequence[tuple], timeout_s: float = STRIP_TIM
              for g, d in zip(grids, devs)]
     shared = {i for i in index if index.count(i) > 1}
     current = {i: torch.cuda.current_stream(i) for i in set(index)}
-    lib = _strips_lib()
+    launch = build.entry("v2e_refractory_scan_strips")
     launched, err = [], 0
     for s, (args, g, i) in enumerate(zip(strips, grids, index)):
         stream = current[i]
@@ -527,12 +485,12 @@ def refractory_scan_strips(strips: Sequence[tuple], timeout_s: float = STRIP_TIM
         lp, leak, shot, pos, neg, _, _, dts, t_prevs, R = args
         new_base, new_mem, counts, i0 = outs[s]
         with torch.cuda.device(i):
-            err = lib.v2e_refractory_scan_strips(
+            err = launch(
                 _ptr(lp), _ptr(leak), _ptr(shot), _ptr(pos), _ptr(neg), _ptr(new_base),
                 _ptr(new_mem), _ptr(dts), _ptr(t_prevs), _ptr(kbufs[s]), _ptr(counts),
-                _ptr(i0), ctypes.c_void_p(x.address(i)), s, n, tag0,
+                _ptr(i0), x.address(i), s, n, tag0,
                 int(timeout_s * 1e9), F, npixs[s], float(R), g.blocks, g.threads, int(g.regs),
-                ctypes.c_void_p(stream.cuda_stream))
+                stream.cuda_stream)
         if err:
             break
         tracing.count("launch.k1_strips")
@@ -549,13 +507,7 @@ def refractory_scan_strips(strips: Sequence[tuple], timeout_s: float = STRIP_TIM
         code, strip, frame = word >> 56, (word >> 32) & 0xFFFFFF, word & 0xFFFFFFFF
         raise RuntimeError(f"refractory_scan_strips: {_ERRORS.get(code, code)} within "
                            f"{timeout_s} s (strip {strip}, frame {frame})")
-    refractory_scan_strips.last_call = (tuple(tuple(a[0].shape) for a in strips), grids)
     return [o + (k[:F],) for o, k in zip(outs, kbufs)]
-
-
-# the last call's ([F,h,W] per strip, StripGrid per strip); its launches,
-# one per strip and call, count in tracing's "launch.k1_strips"
-refractory_scan_strips.last_call = None
 
 
 def scan_plain(
@@ -768,16 +720,12 @@ def _device_plan(npix: int, n_frames: int, device_index: int, elem_sizes, ptr_of
 
 
 @functools.cache
-def _scan_fn():
-    lib = build.load("emulator_scan")
-    lib.v2e_scan_plan_bytes.restype = ctypes.c_int
-    if lib.v2e_scan_plan_bytes() != ctypes.sizeof(_CPlan):
-        raise RuntimeError(f"scan: the kernel's ScanPlan is {lib.v2e_scan_plan_bytes()} "
-                           f"bytes, _CPlan {ctypes.sizeof(_CPlan)}")
-    fn = lib.v2e_scan
-    fn.argtypes = [ctypes.POINTER(_CPlan)] + [ctypes.c_void_p] * 10
-    fn.restype = ctypes.c_int
-    return fn
+def _check_plan_bytes() -> None:
+    """Raise unless the kernel's ScanPlan and `_CPlan` have one size."""
+    n = build.entry("v2e_scan_plan_bytes")()
+    if n != ctypes.sizeof(_CPlan):
+        raise RuntimeError(f"scan: the kernel's ScanPlan is {n} bytes, _CPlan "
+                           f"{ctypes.sizeof(_CPlan)}")
 
 
 def scan(
@@ -795,7 +743,6 @@ def scan(
     Inputs are not modified.  Returns (new_base, signed counts i16[F,H,W]).
     A shared memory request the card refuses, or a failed launch, raises.
     """
-    scan.last_call = tuple(lp.shape)
     if not lp.is_cuda:
         return scan_plain(lp, leak_delta, shot_any, pos_thres, neg_thres, base)
     F, H, W = lp.shape
@@ -812,23 +759,10 @@ def scan(
     counts = torch.empty((F, H, W), dtype=torch.int16, device=dev)
     if F == 0 or H * W == 0:
         return base.clone(), counts
-    plan, cplan, tiles = _device_plan(
+    _, cplan, tiles = _device_plan(
         H * W, F, dev.index, *stream_layout(lp, leak_delta, shot_any))
     new_base = torch.empty_like(base)
-    with torch.cuda.device(dev):
-        err = _scan_fn()(
-            ctypes.byref(cplan), tiles.data_ptr(), lp.data_ptr(),
-            _ptr(leak_delta), _ptr(shot_any), pos_thres.data_ptr(), neg_thres.data_ptr(),
-            base.data_ptr(), new_base.data_ptr(), counts.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    build.check(err, "scan")
-    tracing.count("launch.k2")
-    scan.last_plan = plan
+    _check_plan_bytes()
+    build.call("v2e_scan", dev, ctypes.byref(cplan), tiles, lp, leak_delta, shot_any, pos_thres,
+               neg_thres, base, new_base, counts, counter="launch.k2")
     return new_base, counts
-
-
-# the last call's [F,H,W] and the last launch's plan; its launches, one
-# per chunk, count in tracing's "launch.k2"
-scan.last_call = None
-scan.last_plan = None

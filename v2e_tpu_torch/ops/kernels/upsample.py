@@ -26,11 +26,8 @@ and layout; its wrapper converts any other gradient once.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels import build
 
 # the kernels' dtype codes (csrc/upsample.cu)
@@ -130,19 +127,6 @@ def upsample2x_plain_vjp(gout: torch.Tensor, channels_last: bool = False) -> tor
     return gx.to(gout.dtype).contiguous(memory_format=_format(channels_last))
 
 
-def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, *args: int) -> None:
-    """Launch kernel `name` from src into dst with the int arguments `args`
-    on src's device's current stream."""
-    fn = getattr(build.load("upsample"), name)
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * len(args) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
-        err = fn(ctypes.c_void_p(src.data_ptr()), ctypes.c_void_p(dst.data_ptr()), *args,
-                 ctypes.c_void_p(stream))
-    build.check(err, name)
-
-
 def _check_cuda(x: torch.Tensor, what: str) -> None:
     _check(x, what)
     if x.dtype not in _DTYPES:
@@ -162,8 +146,8 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, c, 2 * h, 2 * w), dtype=x.dtype, device=x.device,
                       memory_format=_format(nhwc))
     if out.numel():
-        _launch("v2e_upsample_bilinear2x", x, out, n, c, h, w, _DTYPES[x.dtype], int(nhwc))
-        tracing.count("launch.k6")
+        build.call("v2e_upsample_bilinear2x", x.device, x, out, n, c, h, w,
+                   _DTYPES[x.dtype], int(nhwc), counter="launch.k6")
     return out
 
 
@@ -182,8 +166,8 @@ def upsample2x_vjp(gout: torch.Tensor, channels_last: bool = False) -> torch.Ten
     g = gout.to(torch.float32, memory_format=torch.contiguous_format)
     gx = torch.empty((n, c, h2 // 2, w2 // 2), dtype=torch.float32, device=g.device)
     if gx.numel():
-        _launch("v2e_upsample_bilinear2x_vjp", g, gx, n, c, h2 // 2, w2 // 2)
-        tracing.count("launch.k6_vjp")
+        build.call("v2e_upsample_bilinear2x_vjp", g.device, g, gx, n, c, h2 // 2, w2 // 2,
+                   counter="launch.k6_vjp")
     return gx.to(gout.dtype, memory_format=_format(channels_last))
 
 

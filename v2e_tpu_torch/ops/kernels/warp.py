@@ -12,19 +12,16 @@ backwarp that the JAX package leaves to XLA).
 Design (see the source's note): one thread per output pixel gathers its
 four taps in f32.  Bound by memory bytes: 16 B per pixel (image, two flow
 planes, output).  Decision: the port computes the exact warp with no
-+-max_disp clamp of the flow, so it equals backwarp for any flow; the
-TPU kernel clamped to the window, which on the main path already covers the
-chunk's flow (SuperSloMo._choose_disp), so the two agree there.  The TPU's
-default bf16 ("1pass") weights were a matrix-unit artifact; the port
-computes in f32.
++-max_disp clamp of the flow, so it equals backwarp for any flow and takes
+no window; the TPU kernel clamped to a window bucketed from the chunk's
+max flow, which covered that flow, so the two agree on the main path.
+The TPU's default bf16 ("1pass") weights were a matrix-unit artifact; the
+port computes in f32.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels import build
 
 
@@ -92,7 +89,9 @@ def warp_plain_vjp(
     return grad_flow, grad_img.reshape(n, H, W)
 
 
-def _check_planes(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
+def check_planes(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless img, u and v are the planes K3 and K4 take (see
+    `bilinear_warp`)."""
     N, H, W = img.shape
     for name, t in (("img", img), ("u", u), ("v", v)):
         if t.dtype != torch.float32 or tuple(t.shape) != (N, H, W) or t.device != img.device:
@@ -109,44 +108,22 @@ def _check_planes(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("u and v must have the same stride between images")
 
 
-def bilinear_warp(
-    img: torch.Tensor, u: torch.Tensor, v: torch.Tensor, max_disp: int = 32
-) -> torch.Tensor:
+def bilinear_warp(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K3 wrapper: the kernel for CUDA tensors, the plain version for CPU.
 
     img [N,H,W] f32 contiguous; u, v [N,H,W] f32, each plane contiguous
     and u, v with the same stride between images (the two channels of a
-    contiguous [N,2,H,W] flow qualify).  `max_disp` is the displacement
-    window the caller chose; it is recorded in `bilinear_warp.last_max_disp`
-    and does not clamp the flow (see the module note).
+    contiguous [N,2,H,W] flow qualify).  The flow is not clamped (see the
+    module note).
     """
-    if int(max_disp) <= 0:
-        raise ValueError(f"max_disp {max_disp} must be positive")
-    bilinear_warp.last_max_disp = int(max_disp)
     if not img.is_cuda:
         return warp_plain(img, u, v)
     N, H, W = img.shape
-    _check_planes(img, u, v)
+    check_planes(img, u, v)
     out = torch.empty_like(img)
-    fn = build.load("warp").v2e_bilinear_warp
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(
-            ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(u.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            N, H, W, u.stride(0), ctypes.c_void_p(stream),
-        )
-    build.check(err, "bilinear_warp")
-    tracing.count("launch.k3")
+    build.call("v2e_bilinear_warp", img.device, img, u, v, out, N, H, W, u.stride(0),
+               counter="launch.k3")
     return out
-
-
-# the last call's max_disp; its launches count in tracing's "launch.k3"
-bilinear_warp.last_max_disp = None
 
 
 def bilinear_warp_vjp(
@@ -160,32 +137,17 @@ def bilinear_warp_vjp(
     if not img.is_cuda:
         return warp_plain_vjp(img, u, v, gout, need_img)
     N, H, W = img.shape
-    _check_planes(img, u, v)
+    check_planes(img, u, v)
     if gout.dtype != torch.float32 or tuple(gout.shape) != (N, H, W) or gout.device != img.device:
         raise ValueError(f"gout: expected float32 {(N, H, W)} on {img.device}, got "
                          f"{gout.dtype} {tuple(gout.shape)} on {gout.device}")
     gout = gout.contiguous()
     grad_flow = torch.empty((N, 2, H, W), dtype=torch.float32, device=img.device)
     grad_img = torch.zeros_like(img) if need_img else None
-    fn = build.load("warp").v2e_bilinear_warp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(
-            ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(u.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(gout.data_ptr()),
-            ctypes.c_void_p(grad_flow.data_ptr()),
-            ctypes.c_void_p(grad_flow[:, 1].data_ptr()),
-            ctypes.c_void_p(grad_img.data_ptr() if need_img else None),
-            N, H, W, u.stride(0), grad_flow.stride(0), ctypes.c_void_p(stream),
-        )
-    build.check(err, "bilinear_warp_vjp")
-    tracing.count("launch.k3_vjp")
+    build.call("v2e_bilinear_warp_bwd", img.device, img, u, v, gout, grad_flow,
+               grad_flow[:, 1], grad_img, N, H, W, u.stride(0), grad_flow.stride(0),
+               counter="launch.k3_vjp")
     return grad_flow, grad_img
-
 
 
 class BilinearWarpFn(torch.autograd.Function):

@@ -3,7 +3,7 @@ base displacement and clamped residual window.
 
 Replaces v2e_tpu/ops/pallas/warp_v2.py::bilinear_warp_tiled, which the
 JAX package runs whenever the warp window exceeds 32 px (auto-upsampling
-picked U > 32, SuperSloMo._choose_disp).  `warp_tiled` launches the CUDA
+picked U > 32, SuperSloMo.warp_window).  `warp_tiled` launches the CUDA
 kernel (csrc/warp_tiled.cu) for CUDA tensors and runs `warp_tiled_plain`,
 the same float32 operations in PyTorch, for CPU tensors.
 
@@ -21,13 +21,11 @@ per pixel (image, two flow planes, output).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from v2e_tpu_torch import tracing
 from v2e_tpu_torch.ops.kernels import build
+from v2e_tpu_torch.ops.kernels.warp import check_planes
 
 BH, BW = 8, 128  # output tile (rows, columns)
 M_ROW, M_COL = 12, 72  # residual window around the displaced tile
@@ -107,41 +105,11 @@ def warp_tiled(
     """
     if int(max_base) <= 0 or int(max_base) % 128:
         raise ValueError(f"max_base {max_base} must be a positive multiple of 128")
-    warp_tiled.last_call = (tuple(img.shape), int(max_base))
     if not img.is_cuda:
         return warp_tiled_plain(img, u, v, int(max_base))
     N, H, W = img.shape
-    for name, t in (("img", img), ("u", u), ("v", v)):
-        if t.dtype != torch.float32 or tuple(t.shape) != (N, H, W) or t.device != img.device:
-            raise ValueError(
-                f"{name}: expected float32 {(N, H, W)} on {img.device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-    if not img.is_contiguous():
-        raise ValueError("img must be contiguous")
-    for name, t in (("u", u), ("v", v)):
-        if t.stride()[1:] != (W, 1):
-            raise ValueError(f"{name}: each [H,W] plane must be contiguous")
-    if u.stride(0) != v.stride(0):
-        raise ValueError("u and v must have the same stride between images")
+    check_planes(img, u, v)
     out = torch.empty_like(img)
-    fn = build.load("warp_tiled").v2e_warp_tiled
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
-        err = fn(
-            ctypes.c_void_p(img.data_ptr()), ctypes.c_void_p(u.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            N, H, W, u.stride(0), int(max_base), ctypes.c_void_p(stream),
-        )
-    build.check(err, "warp_tiled")
-    tracing.count("launch.k4")
+    build.call("v2e_warp_tiled", img.device, img, u, v, out, N, H, W, u.stride(0),
+               int(max_base), counter="launch.k4")
     return out
-
-
-# the last call's ([N,H,W], max_base); its launches count in tracing's
-# "launch.k4"
-warp_tiled.last_call = None
