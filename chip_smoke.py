@@ -98,7 +98,14 @@ Phases, each printed on its own line with its seconds:
      (bf16) and, with its VJP, a training step (float32): equal to its
      plain versions bit for bit, its ulps from F.interpolate and the
      library's backward, and its device time beside the plain version's,
-     the library's and the bound;
+     the library's and the bound; then K8 (the UNets' conv epilogue:
+     bias, LeakyReLU and the up levels' skip, NHWC) at the calls the fused
+     chunks made (their counted launches, 23 a UNet forward, reported a
+     chunk) and at one chunk of each conversion cell's UNets (flow N = 8,
+     refinement N = 80 or 96, bf16): equal to its plain version bit for
+     bit, its device time beside the plain version's, ATen's `add_` +
+     `leaky_relu` (+ `torch.cat`) and the bound, and the layout and glue
+     kernels left on cell 1's chunk under the profiler;
  10. the interp UNet's forward at the fused chunk's shape (80 x 12 channels
      of 256x320, bf16, base 32) in the conv forms dense, packedz, fold45,
      packedfold45 and fold: time and max abs difference from dense, and
@@ -223,7 +230,7 @@ def log(msg: str) -> None:
 LAUNCH = {"refractory_scan": "launch.k1", "refractory_scan_strips": "launch.k1_strips",
           "scan": "launch.k2", "bilinear_warp": "launch.k3", "bilinear_warp_vjp": "launch.k3_vjp",
           "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5", "upsample2x": "launch.k6",
-          "upsample2x_vjp": "launch.k6_vjp"}
+          "upsample2x_vjp": "launch.k6_vjp", "conv_bias_leaky": "launch.k8"}
 
 
 def launch_counts(names) -> dict:
@@ -1220,6 +1227,15 @@ def k6_recorder(name="upsample2x"):
     return CallRecorder(upsample, name, keep)
 
 
+def k8_recorder():
+    """K8's calls by (y's shape, dtype, with a skip), as the UNets'
+    inference path makes them (models/unet.py imports the wrapper)."""
+    from v2e_tpu_torch.models import unet
+
+    return CallRecorder(unet, "conv_bias_leaky",
+                        lambda y, bias, skip=None: (tuple(y.shape), y.dtype, skip is not None))
+
+
 def shape_recorders() -> dict:
     """CallRecorders of the calls a conversion makes to K1 and K2 (their
     [F,H,W]) and to K4 (its [N,H,W] and max_base), where the emulator core
@@ -1974,6 +1990,118 @@ def phase_k6(torch, dev, cases):
     return {
         "name": "upsample2x", "route": "cuda", "source": "v2e_tpu_torch/csrc/upsample.cu",
         "replaces": "none (v2e_tpu/models/unet.py:300, jax.image.resize)", "cases": out,
+        "launches": head["launches"], "ms": head["ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes", "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
+    }
+
+
+def phase_k8(torch, dev, fused_calls, fused_launches):
+    """K8 (the UNets' conv epilogue) at the shapes the main path launched
+    it with: `fused_calls` ({(y's shape, dtype, with a skip): calls}) and
+    `fused_launches` (launch.k8) of the N_MEAS fused chunks, which the
+    `kernels` line reports a chunk.  Two more cases are one chunk of each
+    conversion cell's UNets, bf16 with random weights: the flow UNet at
+    N = 8 and the refinement UNet at N = 80 (dvs346_slomo_u10) or 96
+    (dvs346_noisy_u12), each counted from launch.k8 taken just before it.
+    In every case the counted launches must equal the recorded calls.  Each
+    distinct call is launched once and must equal the plain version bit
+    for bit; device times (CUDA events over repeated launches), weighted by
+    the calls and divided by the chunks, beside the plain version's, the
+    library pair it replaced (ATen's bias `add_` and `F.leaky_relu`, and
+    `torch.cat` where the skip is, on NCHW as the parent ran them) and the
+    bound (the conv output and the skip read once, the output written
+    once).  Last, dvs346_slomo_u10's chunk of UNet forwards under the
+    profiler, with the layout and glue kernels left on it by name."""
+    import torch.nn.functional as Fn
+
+    from v2e_tpu_torch.models.convert_ckpt import from_jax_params, init_random_slomo_params
+    from v2e_tpu_torch.ops.kernels.conv_epilogue import conv_bias_leaky, conv_bias_leaky_plain
+
+    flow, interp = from_jax_params(*init_random_slomo_params(seed=0), device=dev,
+                                   dtype=torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def nhwc(n, h, w, c):
+        return torch.randn((n, h, w, c), generator=g, device=dev).to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+
+    def cell_chunk(n_refine):
+        flow(nhwc(8, 256, 320, 2))
+        interp(nhwc(n_refine, 256, 320, 12))
+
+    cases = [(f"fused chunks B={B} U={U}", fused_calls, fused_launches, N_MEAS)]
+    for tag, n_refine in (("dvs346_slomo_u10", 80), ("dvs346_noisy_u12", 96)):
+        with k8_recorder() as rec, torch.no_grad():
+            before = launch_counts(["conv_bias_leaky"])
+            cell_chunk(n_refine)
+            launches = launches_since(before)["conv_bias_leaky"]
+        cases.append((f"{tag} chunk (flow N=8, refinement N={n_refine})",
+                      Counter(rec.calls), launches, 1))
+
+    timed = {}
+
+    def time_call(shape, dtype, with_skip):
+        """(ms, plain ms, library ms, bytes) of one call, checked once."""
+        if (shape, dtype, with_skip) in timed:
+            return timed[shape, dtype, with_skip]
+        n, c, h, w = shape
+        y = nhwc(n, h, w, c).to(dtype)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        skip = nhwc(n, h, w, c).to(dtype) if with_skip else None
+        if not torch.equal(conv_bias_leaky(y, bias, skip), conv_bias_leaky_plain(y, bias, skip)):
+            raise AssertionError(f"K8 at {shape} {dtype} skip={with_skip} differs from "
+                                 "its plain version")
+        yl, bl = y.contiguous(), bias.to(dtype)[None, :, None, None]
+        sl = skip.contiguous() if with_skip else None
+
+        def library():
+            a = Fn.leaky_relu(yl.add_(bl), 0.1)
+            return torch.cat([a, sl], dim=1) if with_skip else a
+
+        reps = 20 if y.numel() < 50e6 else 10
+        timed[shape, dtype, with_skip] = (
+            time_ms(torch, lambda: conv_bias_leaky(y, bias, skip), reps=reps),
+            time_ms(torch, lambda: conv_bias_leaky_plain(y, bias, skip), reps=3),
+            time_ms(torch, library, reps=5),
+            (4 if with_skip else 2) * y.numel() * y.element_size())
+        return timed[shape, dtype, with_skip]
+
+    out = {}
+    for tag, calls, launches, per in cases:
+        if sum(calls.values()) != launches:
+            raise AssertionError(f"[k8] {tag}: {launches} launches counted, "
+                                 f"{sum(calls.values())} calls recorded")
+        tot = {"launches": launches // per if launches % per == 0 else launches / per,
+               "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bytes": 0.0}
+        for key, k in sorted(calls.items(), key=str):
+            for name, v in zip(("ms", "plain_ms", "library_ms", "bytes"), time_call(*key)):
+                tot[name] += k * v / per
+        b_ms, _ = bound(tot["bytes"], 0)
+        log(f"[k8] {tag}, bf16: {launches} launches counted and recorded in {per} "
+            f"chunk(s), {launches / per:g} a chunk ("
+            + ", ".join(f"{'x'.join(map(str, sh))}{' +skip' if sk else ''} x{k / per:g}"
+                        for (sh, _, sk), k in sorted(calls.items(), key=str))
+            + f"): kernel {tot['ms']:.4f} ms a chunk, plain {tot['plain_ms']:.3f} ms, "
+            f"add_ + leaky_relu (+ cat) {tot['library_ms']:.3f} ms, bound {b_ms:.4f} ms "
+            f"(bytes, {tot['bytes'] / 1e9:.3f} GB), {b_ms / tot['ms']:.1%} of the bound, "
+            f"{tot['ms'] / b_ms:.3f}x it")
+        out[tag] = dict(tot, bound_ms=b_ms, per=per)
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: cell_chunk(80), reps=3)
+        rows = profile_device(torch, "k8", lambda: cell_chunk(80), ms,
+                              "dvs346_slomo_u10's UNet forwards (flow N=8, refinement N=80, "
+                              "bf16 dense)", top=10)
+    glue = ("nchwToNhwc", "nhwcToNchw", "nhwcAddPadding", "CatArray", "leaky_relu",
+            "CUDAFunctor_add", "reduce_kernel", "avg_pool2d")
+    left = [(ms, n, name) for ms, n, name in rows if any(p in name for p in glue)]
+    if rows:
+        log("[k8] layout and glue kernels left on that chunk: " + ("; ".join(
+            f"{name[:60]} x{n} {ms:.3f} ms" for ms, n, name in left) or "none"))
+    head = out[cases[0][0]]
+    return {
+        "name": "conv_bias_leaky", "route": "cuda", "source": "v2e_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": "none (v2e_tpu/models/unet.py::_conv_block, XLA's fusion)", "cases": out,
         "launches": head["launches"], "ms": head["ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "plain_ms": head["plain_ms"], "library_ms": head["library_ms"],
     }
@@ -2996,21 +3124,24 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"[fused] setup + staged + warm chunks {time.perf_counter() - t:.2f} s")
 
-    before = launch_counts(["refractory_scan", "bilinear_warp", "upsample2x"])
+    before = launch_counts(["refractory_scan", "bilinear_warp", "upsample2x",
+                            "conv_bias_leaky"])
     torch.cuda.synchronize()
     t = time.perf_counter()
     split = []
-    with k6_recorder() as k6_rec:
+    with k6_recorder() as k6_rec, k8_recorder() as k8_rec:
         runs = run_chunks(np, fc, em, src, range(2, 2 + N_MEAS), B, U, split)
     wall = time.perf_counter() - t
-    k1["launches"], k3["launches"], k6_launches = launches_since(before).values()
-    # K6: 5 up levels of the flow UNet and of each refinement group's UNet
-    k6_want = 5 * (1 + _group_split(U, B, MAX_GROUP)[0]) * N_MEAS
+    k1["launches"], k3["launches"], k6_launches, k8_launches = launches_since(before).values()
+    # K6: 5 up levels, K8: 23 convs, of the flow UNet and of each refinement
+    # group's UNet
+    unets = (1 + _group_split(U, B, MAX_GROUP)[0]) * N_MEAS
     if (len(runs) != N_MEAS or not k1["launches"] or not k3["launches"]
-            or k6_launches != k6_want):
+            or k6_launches != 5 * unets or k8_launches != 23 * unets):
         raise AssertionError(
             f"main path ran {len(runs)} chunks, K1 launches {k1['launches']}, "
-            f"K3 launches {k3['launches']}, K6 launches {k6_launches} (want {k6_want})")
+            f"K3 launches {k3['launches']}, K6 launches {k6_launches} (want {5 * unets}), "
+            f"K8 launches {k8_launches} (want {23 * unets})")
     for _, hd in runs:
         fr = hd["outs"]["dvs_frames"]
         if tuple(fr.shape) != (B * U, H, W) or not bool(torch.isfinite(fr).all()):
@@ -3020,7 +3151,8 @@ def main() -> int:
     log(f"[fused] {N_MEAS} measured chunks of {B * U} frames at {W}x{H}: "
         f"{wall:.3f} s, {wall / N_MEAS * 1e3:.1f} ms/chunk, realtime factor "
         f"{rtf:.4f}; events/chunk {n_ev}; K1 launches {k1['launches']}, "
-        f"K3 launches {k3['launches']}, K6 launches {k6_launches}; warp window {fc.window}")
+        f"K3 launches {k3['launches']}, K6 launches {k6_launches}, K8 launches "
+        f"{k8_launches}; warp window {fc.window}")
     sub = [a for a, _ in split]
     col = [b for _, b in split]
     log(f"[fused] per chunk: submit (the host's enqueue, no wait for the device) "
@@ -3158,6 +3290,9 @@ def main() -> int:
          "step"),
     ])
     log(f"[k6] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    k8 = phase_k8(torch, dev, Counter(k8_rec.calls), k8_launches)
+    log(f"[k8] {time.perf_counter() - t:.2f} s")
 
     t = time.perf_counter()
     pixel = phase_pixel(torch, np, dev)
@@ -3184,7 +3319,7 @@ def main() -> int:
     log("[native] " + json.dumps({"host_cpu": cpu_model(), "functions": host_ms}))
     log("[training] " + json.dumps(training))
     log("[parallel] " + json.dumps({"pixel": pixel, "segment": segment, "ddp": ddp}))
-    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, k6, k1_strips]}))
+    log(json.dumps({"kernels": [k1, k2, k3, vjp, k4, k5, k6, k8, k1_strips]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

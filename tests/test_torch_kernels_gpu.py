@@ -21,7 +21,9 @@ to 4e-6 at values near 1e-4), with at most 0.5 % of the elements differing
 off.  K6 (the bilinear x2 upsample) and its VJP equal their plain
 versions bit for bit; K6 is within one ulp of F.interpolate in bf16 and
 fp16 and three in float32, and its VJP within four float32 ulps of
-autograd in float64 (see the tests for the scale).  The emulator's
+autograd in float64 (see the tests for the scale).  K8 (the UNets' conv
+epilogue) equals its plain version bit for bit; the inference path's
+pooling is within one bf16 ulp of F.avg_pool2d.  The emulator's
 variant paths (SciDVS, CSDVS, the per-frame path) have no kernel: they
 are held card against CPU at the tolerances of
 test_torch_variants.py, and a checkpoint's resume on the card bit for bit.
@@ -61,6 +63,7 @@ from v2e_tpu_torch.ops.kernels.upsample import (
     upsample2x_vjp,
 )
 from v2e_tpu_torch.ops.kernels.warp_tiled import warp_tiled, warp_tiled_plain
+from v2e_tpu_torch.ops.kernels.conv_epilogue import conv_bias_leaky, conv_bias_leaky_plain
 from test_torch_upsample import library, within_ulps
 
 pytestmark = pytest.mark.gpu
@@ -69,7 +72,7 @@ pytestmark = pytest.mark.gpu
 LAUNCH = {"refractory_scan": "launch.k1", "refractory_scan_strips": "launch.k1_strips",
           "scan": "launch.k2", "bilinear_warp": "launch.k3", "bilinear_warp_vjp": "launch.k3_vjp",
           "warp_tiled": "launch.k4", "conv3x3_lane": "launch.k5", "upsample2x": "launch.k6",
-          "upsample2x_vjp": "launch.k6_vjp"}
+          "upsample2x_vjp": "launch.k6_vjp", "conv_bias_leaky": "launch.k8"}
 
 
 def n_launches(kernel) -> int:
@@ -568,9 +571,10 @@ def check_upsample2x_vjp(cuda, shape, dtype, channels_last):
 
 @pytest.mark.parametrize("form", ["dense", "packedz"])
 def test_unet_forward_on_card_launches_k6_per_up_level(cuda, monkeypatch, form):
-    """One K6 launch per up level, NCHW in the dense form and the
-    channels_last view K5 leaves in packedz (at base 8, K5 runs up2 and
-    up3), and the same output as the UNet with the plain upsample."""
+    """One K6 launch per up level, channels_last on the inference path in
+    the dense form and on the view K5 leaves in packedz (at base 8, K5
+    runs up2 and up3), and the same output as the UNet with the plain
+    upsample."""
     from v2e_tpu_torch.models import unet as unet_mod
     from v2e_tpu_torch.models.unet import UNet, unet_apply
 
@@ -605,6 +609,111 @@ def test_upsample2x_refuses_other_types_and_never_falls_back(cuda):
     with pytest.raises(ValueError):
         upsample2x_vjp(torch.randn((1, 2, 7, 8), device=cuda))
     assert (n_launches(upsample2x), n_launches(upsample2x_vjp)) == (n0, v0)
+
+
+# ---- K8: the UNets' conv epilogue (bias, LeakyReLU, skip) on the inference path ----
+
+# (H, W, Co) of the UNets' conv outputs at base 32 on 256x320 frames: conv1
+# and conv2, down1..down5, conv3 of the refinement (5) and flow (4) UNets;
+# and the up levels' conv1 outputs, which take their skip
+EPI_LEVELS = [(256, 320, 32), (128, 160, 64), (64, 80, 128), (32, 40, 256), (16, 20, 512),
+              (8, 10, 512), (256, 320, 5), (256, 320, 4)]
+EPI_SKIP_LEVELS = [(16, 20, 512), (32, 40, 256), (64, 80, 128), (128, 160, 64),
+                   (256, 320, 32)]
+EPI_SHAPES = ([(n, h, w, co, False) for n in (8, 80, 96) for h, w, co in EPI_LEVELS]
+              + [(n, h, w, co, True) for n in (8, 80, 96) for h, w, co in EPI_SKIP_LEVELS])
+
+
+def epi_input(cuda, n, h, w, co, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    y = torch.randn((n, h, w, co), generator=g, device=cuda).to(dtype)
+    return y.permute(0, 3, 1, 2)  # channels_last [N,Co,H,W]
+
+
+@pytest.mark.parametrize("dtype", UP_DTYPES, ids=str)
+@pytest.mark.parametrize("n,h,w,co,with_skip", EPI_SHAPES,
+                         ids=lambda v: str(v) if not isinstance(v, bool) else
+                         ("skip" if v else "noskip"))
+def test_conv_bias_leaky_kernel_matches_plain(cuda, n, h, w, co, with_skip, dtype):
+    """K8 equals its plain version bit for bit at every level the UNets
+    launch it at, for the flow (N = 8) and refinement (80, 96) batches;
+    the skip slot holds the skip exactly."""
+    y = epi_input(cuda, n, h, w, co, dtype, seed=co)
+    bias = 0.2 * torch.randn(co, generator=torch.Generator(device=cuda).manual_seed(1),
+                             device=cuda)
+    skip = epi_input(cuda, n, h, w, co, dtype, seed=co + 1) if with_skip else None
+    n0 = n_launches(conv_bias_leaky)
+    got = conv_bias_leaky(y, bias, skip)
+    assert n_launches(conv_bias_leaky) == n0 + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, conv_bias_leaky_plain(y, bias, skip))
+    if with_skip:
+        assert torch.equal(got[:, co:], skip)
+
+
+def test_conv_bias_leaky_refuses_and_never_falls_back(cuda):
+    """NCHW, a view not 16-byte aligned and float64 raise, and nothing is
+    launched."""
+    n0 = n_launches(conv_bias_leaky)
+    y = epi_input(cuda, 2, 8, 10, 32, torch.bfloat16, seed=0)
+    bias = torch.zeros(32, device=cuda)
+    with pytest.raises(ValueError):
+        conv_bias_leaky(y.contiguous(), bias)
+    base = torch.zeros(2 * 8 * 10 * 32 + 1, device=cuda, dtype=torch.bfloat16)
+    off = base[1:].view(2, 8, 10, 32).permute(0, 3, 1, 2)
+    assert off.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_bias_leaky(off, bias)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_bias_leaky(y, bias, off)
+    with pytest.raises(TypeError):
+        conv_bias_leaky(y.double(), bias)
+    assert n_launches(conv_bias_leaky) == n0
+
+
+@pytest.mark.parametrize("n,c,h,w", [(80, 32, 256, 320), (96, 64, 128, 160), (8, 512, 16, 20)])
+def test_nhwc_pooling_on_card_is_avg_pool2d(cuda, n, c, h, w):
+    """The inference path's pooling (a mean over the NHWC view's window axes)
+    against F.avg_pool2d in bf16 at the UNets' down levels: within one bf16
+    ulp at the window's mean of |x| (the float32 sums of four bf16 terms are
+    exact but for terms 2^16 apart; measured bit-equal), channels_last."""
+    from v2e_tpu_torch.models.unet import avg_pool2_nhwc
+
+    x = epi_input(cuda, n, h, w, c, torch.bfloat16, seed=c)
+    got = avg_pool2_nhwc(x)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    scale = torch.nn.functional.avg_pool2d(x.double().abs(), 2)
+    err = (got.double() - torch.nn.functional.avg_pool2d(x, 2).double()).abs()
+    assert bool((err <= torch.finfo(torch.bfloat16).eps * scale).all())
+
+
+def test_refinement_forward_runs_k8_and_no_layout_glue(cuda):
+    """One bf16 dense refinement forward at N = 80, 256x320 on the
+    inference path: 23 K8 launches, one per conv, and no cuDNN layout
+    transpose, concatenation or LeakyReLU kernel in its profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2e_tpu_torch.models.convert_ckpt import from_jax_params, init_random_slomo_params
+
+    _, net = from_jax_params(*init_random_slomo_params(seed=0), device=cuda,
+                             dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = (0.3 * torch.randn((80, 256, 320, 12), generator=g, device=cuda)).to(torch.bfloat16)
+    x = x.permute(0, 3, 1, 2)  # as interpolate_pairs stacks it
+    with torch.no_grad():
+        net(x)
+        torch.cuda.synchronize()
+        n0 = n_launches(conv_bias_leaky)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = net(x)
+            torch.cuda.synchronize()
+    assert n_launches(conv_bias_leaky) == n0 + 23
+    assert out.shape == (80, 5, 256, 320) and bool(torch.isfinite(out).all())
+    names = [e.key for e in prof.key_averages()]
+    assert any("conv_bias_leaky" in k for k in names), names
+    glue = [k for k in names if any(p in k.lower() for p in (
+        "nchwtonhwc", "nhwctonchw", "catarraybatchedcopy", "leaky_relu"))]
+    assert not glue, glue
 
 
 # ---- the emulator's variant paths on the card (no kernel of their own) ----

@@ -112,7 +112,10 @@ def _to_unet(params: NpParams, io: Tuple[int, int], device, dtype) -> UNet:
     net.load_state_dict(state)
     net = net.to(device=device)
     net.keep_float32_terms(dtype)
-    return net.to(dtype=dtype).eval().requires_grad_(False)
+    # the conv weights channels_last (OHWI in memory), as the inference
+    # path's NHWC convs read them
+    net = net.to(dtype=dtype, memory_format=torch.channels_last)
+    return net.eval().requires_grad_(False)
 
 
 def from_jax_params(
@@ -122,7 +125,9 @@ def from_jax_params(
     dtype: torch.dtype = torch.float32,
 ) -> Tuple[UNet, UNet]:
     """The port's (flow, interp) UNets from parameter trees in the JAX
-    package's layout; the width is read from conv1's shape."""
+    package's layout, for inference: in `dtype`, in eval mode, no
+    parameter requiring grad, the conv weights channels_last; the width is
+    read from conv1's shape."""
     dev = resolve_device(device)
     return _to_unet(flow_np, FLOW_IO, dev, dtype), _to_unet(interp_np, INTERP_IO, dev, dtype)
 

@@ -135,7 +135,9 @@ def create_train_state(
     if params is None:
         params = init_random_slomo_params(seed, base)
     flow_net, interp_net = from_jax_params(*params, resolve_device(device), torch.float32)
-    nets = (flow_net.requires_grad_(True).train(), interp_net.requires_grad_(True).train())
+    # training's convs run NCHW: its weights back in that layout
+    nets = tuple(net.to(memory_format=torch.contiguous_format).requires_grad_(True).train()
+                 for net in (flow_net, interp_net))
     opt = torch.optim.Adam(
         [p for net in nets for p in net.parameters()],
         lr=learning_rate, betas=ADAM_BETAS, eps=ADAM_EPS,

@@ -25,11 +25,30 @@ each to one of the four forms the port runs (`UNetForm`):
 The fold is plain F.conv2d, as the JAX package left it to XLA.  Every
 other up level's bilinear x2 is K6 (ops/kernels/upsample.py), its VJP in
 training.
+
+Two paths, chosen per call by what autograd would record (`forward`), over
+one walk of the network (`_walk`), which differ only in the conv step, the
+pooling and the layout:
+* inference (grad mode off, or neither the input nor a parameter
+  requiring grad, as conversion's frozen modules from
+  convert_ckpt.from_jax_params, whose conv weights are channels_last):
+  channels_last from input to output, so cuDNN's NHWC kernels transpose
+  nothing.  Each dense conv runs bias-free, and K8
+  (ops/kernels/conv_epilogue.py) adds the float32 bias, applies
+  LeakyReLU and rounds once, in one pass; at each up level's conv1 it
+  also copies the skip into the channels after its own, in place of
+  torch.cat, and conv2 reads that buffer (`_fused`).  The pooling is a
+  mean over the NHWC view's window axes (`avg_pool2_nhwc`), K6 runs
+  channels_last, K5 keeps its own epilogue and the fold its NCHW form,
+  its layout changed once at each side.  K8 has no VJP.
+* autograd (training): NCHW nn.Conv2d with its bias, F.leaky_relu and
+  torch.cat (`_act`), and F.avg_pool2d.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, FrozenSet, Sequence, Tuple, Union
+from functools import partial
+from typing import Dict, FrozenSet, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,6 +57,7 @@ from torch import nn
 from v2e_tpu_torch.ops.kernels.conv3 import (
     LANE3_MAX_CO, LANE3_MIN_CO, conv3x3_lane, pack_conv3_weights,
 )
+from v2e_tpu_torch.ops.kernels.conv_epilogue import conv_bias_leaky
 from v2e_tpu_torch.ops.kernels.upsample import Upsample2xFn, upsample2x_along
 
 
@@ -177,6 +197,17 @@ def upconv_fold(x: torch.Tensor, conv: nn.Conv2d, wf: torch.Tensor) -> torch.Ten
     return z.permute(0, 3, 4, 1, 5, 2).reshape(n, co, 2 * hh, 2 * wh)
 
 
+def avg_pool2_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """2x2 average pooling of a channels_last [N,C,H,W] (H, W even), as
+    F.avg_pool2d computes it, the window's mean accumulated in float32 and
+    rounded once, but as a reduction over the NHWC view's window axes: on
+    the card ATen's NHWC pooling kernel takes 3.3x as long.  Returns a
+    channels_last [N,C,H/2,W/2]."""
+    n, c, h, w = x.shape
+    v = x.permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
+    return v.mean((2, 4)).permute(0, 3, 1, 2)
+
+
 class UNet(nn.Module):
     """The SuperSloMo UNet on NCHW tensors (H, W multiples of 32)."""
 
@@ -220,41 +251,87 @@ class UNet(nn.Module):
             blk.fold_weight = upfold_kernel(blk.conv1.weight.detach()).to(dtype)
 
     @staticmethod
-    def _act(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(conv(x), 0.1)
-
-    @classmethod
-    def _lane(cls, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-        """K5 for the layers `lane3_eligible` names, dense for the others.
-        K5 takes NHWC: a channels_last tensor's permute is that with no
-        copy; any other input is copied once."""
-        if not lane3_eligible(conv):
-            return cls._act(conv, x)
+    def _lane(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """K5 on a layer `lane3_eligible` names.  K5 takes NHWC: a
+        channels_last tensor's permute is that with no copy; any other input
+        is copied once."""
         xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         return conv3x3_lane(xh, conv.weight, conv.bias_f32, 0.1,
                             packed=conv.packed_w).permute(0, 3, 1, 2)
 
+    @staticmethod
+    def _act(conv: nn.Conv2d, x: torch.Tensor,
+             skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Training's step: nn.Conv2d with its bias, LeakyReLU, and the
+        skip concatenated after it, each differentiable."""
+        y = F.leaky_relu(conv(x), 0.1)
+        return y if skip is None else torch.cat([y, skip], dim=1)
+
+    @staticmethod
+    def _fused(conv: nn.Conv2d, x: torch.Tensor,
+               skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Inference's step: the bias-free conv of channels_last x, then K8:
+        bias, LeakyReLU and the skip beside it, channels_last.  cuDNN
+        returns channels_last for channels_last input and weights; the CPU's
+        slow conv (small batches, 3x3) may not, and is copied once."""
+        y = F.conv2d(x, conv.weight, None, conv.stride, conv.padding)
+        return conv_bias_leaky(y.contiguous(memory_format=torch.channels_last),
+                               conv.bias_f32, skip)
+
+    def _records_grad(self, x: torch.Tensor) -> bool:
+        """Whether autograd would record this forward: grad mode on, and x
+        or a parameter requiring grad."""
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+
     def forward(self, x: torch.Tensor, form: UNetForm = DENSE) -> torch.Tensor:
-        a = self._act
-        cb3 = self._lane if form.lane else a
-        x = a(self.conv1, x)
-        s1 = a(self.conv2, x)
+        """The UNet of x [N,in_ch,H,W] in `form`, on the path that
+        `_records_grad` picks (`_path`); the inference path returns a
+        channels_last tensor."""
+        return self._walk(x, form, *self._path(self._records_grad(x)))
+
+    def _path(self, autograd: bool):
+        """(block, pool, layout) of `_walk`: training's differentiable step
+        (`_act`), F.avg_pool2d and NCHW, or inference's K8 step (`_fused`),
+        `avg_pool2_nhwc` and channels_last."""
+        if autograd:
+            return self._act, partial(F.avg_pool2d, kernel_size=2), torch.contiguous_format
+        return self._fused, avg_pool2_nhwc, torch.channels_last
+
+    def _walk(self, x: torch.Tensor, form: UNetForm, block, pool,
+              layout: torch.memory_format) -> torch.Tensor:
+        """The network in `form`, x and every activation in `layout`.
+        `block(conv, x, skip=None)` is one dense conv with its bias and
+        LeakyReLU, the skip (if any) concatenated after it; `pool` the 2x2
+        average pooling.  K5's layers keep their own epilogue, and the fold
+        its NCHW form, its output laid out once in `layout`."""
+
+        def cb3(conv, x, skip=None):
+            if not (form.lane and lane3_eligible(conv)):
+                return block(conv, x, skip)
+            y = self._lane(conv, x)
+            return y if skip is None else torch.cat([y, skip], dim=1)
+
+        x = block(self.conv1, x.contiguous(memory_format=layout))
+        s1 = block(self.conv2, x)
         skips = [s1]
         x = s1
         for i in range(1, 6):
             blk = getattr(self, f"down{i}")
-            x = F.avg_pool2d(x, 2)
-            x = a(blk.conv1, x)
-            x = a(blk.conv2, x)
+            x = pool(x)
+            x = block(blk.conv1, x)
+            x = block(blk.conv2, x)
             if i < 5:
                 skips.append(x)
         for i in range(1, 6):
             blk = getattr(self, f"up{i}")
+            skip = skips[5 - i]
             if i in form.fold:
-                x = upconv_fold(x, blk.conv1, blk.fold_weight)
+                x = upconv_fold(x.contiguous(), blk.conv1, blk.fold_weight)
+                x = torch.cat([x.contiguous(memory_format=layout), skip], dim=1)
             else:
-                x = cb3(blk.conv1, _upsample2(x))
-            x = cb3(blk.conv2, torch.cat([x, skips[5 - i]], dim=1))
+                x = cb3(blk.conv1, _upsample2(x), skip)
+            x = cb3(blk.conv2, x)
         return cb3(self.conv3, x)
 
 

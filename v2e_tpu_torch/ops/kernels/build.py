@@ -33,7 +33,7 @@ from v2e_tpu_torch import tracing
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-KERNELS = ("emulator_scan", "warp", "warp_tiled", "conv3x3", "upsample")
+KERNELS = ("emulator_scan", "warp", "warp_tiled", "conv3x3", "upsample", "conv_epilogue")
 
 # sm_90a: Hopper.  --fmad=false and no fast math: the kernels must round
 # every float operation as written (see the notes in the sources).
@@ -53,6 +53,7 @@ ENTRY_POINTS: Dict[str, Tuple[str, str]] = {
     "v2e_conv3x3": ("conv3x3", "4p 7i f 3i s"),
     "v2e_upsample_bilinear2x": ("upsample", "2p 6i s"),
     "v2e_upsample_bilinear2x_vjp": ("upsample", "2p 4i s"),
+    "v2e_conv_bias_leaky": ("conv_epilogue", "4p q 2i s"),
     "v2e_refractory_scan_grid": ("emulator_scan", "i 3p"),
     "v2e_refractory_scan": ("emulator_scan", "12p 2i f s"),
     "v2e_refractory_strips_occupancy": ("emulator_scan", "2i p"),

@@ -57,7 +57,7 @@ The spans, by thread, and what each times:
                            DEVICE: the loss, its backward, the update
 
 Counters (`count`, `counters`) are plain integers, always on: kernel
-launches (`launch.k1` ... `launch.k6`, `launch.k1_strips`,
+launches (`launch.k1` ... `launch.k6`, `launch.k8`, `launch.k1_strips`,
 `launch.k3_vjp`, `launch.k6_vjp`), K5's calls by shape
 (`shape.k5.<N>x<H>x<W>x<Ci>.<Co>`), the host library's calls by path
 (`native.<function>`, `numpy.<function>`), the resize weight matrices
